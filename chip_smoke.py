@@ -12,16 +12,25 @@ Phases (each raises on failure; the exit code is then not 0):
 2. build: nvcc compiles fslr_tpu_torch/csrc/*.cu for sm_90a;
 3. kernel checks: every kernel of the slice against its plain PyTorch
    version on the card, at the main path's shapes, from seeded inputs --
-   the three DP kernels must match exactly, the repeat mask may differ in
-   at most 1 decision in 10^6 and only where the plain posterior lies
-   within 1e-4 of the threshold; both times are printed;
-4. slice: run_pipeline on 10,000 synthetic 2.7 kb fusion amplicons against
-   a 2 x 50 Mbp random reference (bench.make_dataset); every kernel's
-   launch counter must be > 0, the artifacts must exist, and the planted
-   chrB segment must be found in >= 99% of the reads;
+   the DP kernels and the traceback walk must match exactly (tb codes in
+   the words that hold a row's query steps; the kernel zeroes the rest),
+   the repeat mask may differ in at most 1 decision in 10^6 and only
+   where the plain posterior lies within 1e-4 of the threshold; both
+   times are printed;
+4. slice: ``fslr_tpu_torch.cli.main`` (exact CIGARs, the default) on
+   10,000 synthetic 2.7 kb fusion amplicons against a 2 x 50 Mbp random
+   reference (bench.make_dataset); every kernel's launch counter must be
+   > 0, the artifacts must exist, the planted chrB segment must be found
+   in >= 99% of the reads, every primary's CIGAR must span its sequence
+   (M + I + S) and a seeded sample of 1,000 records must have an AS tag
+   equal to the score replayed from its CIGAR against the reference.
+   Then the earlier path, run_pipeline with exact_cigars=False, on the
+   same data (index cache warm): its four kernels must be launched, the
+   traceback kernels not, and recall must hold;
 5. cross-check: 200 reads on the default 2 x 2 Mbp reference run on the
-   card and on the CPU; mappings.bed, filter_counts_summary.csv and the
-   BAM's records must be byte-equal.
+   card and on the CPU, with exact CIGARs (through the CLI) and without;
+   mappings.bed, filter_counts_summary.csv and the BAM's records must be
+   byte-equal.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -40,11 +49,13 @@ import torch
 
 from fslr_tpu.config import JunkFilterConfig, PipelineConfig, ScoringConfig
 from fslr_tpu_torch import kernels
-from fslr_tpu_torch.ops import banded, ssw, tantan
+from fslr_tpu_torch.ops import banded, ssw, tantan, traceback
 
 SLICE_READS = 10_000
 SLICE_REF_BP = 50_000_000           # per contig, 2 contigs
 CROSS_READS = 200
+AS_SAMPLE = 1_000
+CLIPS_ONLY_MAX = 0.02   # share of records with no M/I/D (500 of 44,500 in phase 4)
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     'mask_kernel': ('fslr_tpu_torch/csrc/tantan.cu',
@@ -54,7 +65,14 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
     'sw_kernel': ('fslr_tpu_torch/csrc/ssw.cu', 'fslr_tpu/ops/ssw.py:158'),
     'banded_kernel': ('fslr_tpu_torch/csrc/banded.cu',
                       'fslr_tpu/ops/banded.py:67'),
+    'tb_kernel': ('fslr_tpu_torch/csrc/banded.cu',
+                  'fslr_tpu/ops/traceback.py:64'),
+    # the JAX walk is a lax.scan, not a Pallas kernel
+    'walk_kernel': ('fslr_tpu_torch/csrc/traceback.cu',
+                    'fslr_tpu/ops/traceback.py:246'),
 }
+EARLIER_PATH = ('mask_kernel', 'sw_packed_kernel', 'sw_kernel',
+                'banded_kernel')
 
 
 def preflight() -> str:
@@ -182,6 +200,38 @@ def check_kernels(dev) -> dict:
         ms=_time_ms(lambda: banded._banded_cuda(*args, **kw), 3),
         plain_ms=_time_ms(lambda: banded._banded_torch(*args, **kw), 1))
 
+    # tb_kernel and walk_kernel: 1024 selected alignments x 3072-base
+    # slices (the banded inputs above; row 0 scores nothing)
+    N = 1024
+    q[0] = 4
+    args = [torch.from_numpy(a[:N]).to(dev) for a in (q, w, qlens)]
+    got = traceback._tb_cuda(*args, **kw)
+    want = traceback._tb_torch(*args, **kw)
+    err = _exact('tb_kernel', got[:3], want[:3])
+    live = (torch.arange(Lq // 8, device=dev)[None, :]
+            < ((args[2].long() + 7) // 8)[:, None])
+    err = max(err, _exact('tb_kernel bits', [got[3][live]], [want[3][live]]))
+    if got[3][~live].any():
+        raise AssertionError('tb_kernel: words past a row end are not 0')
+    out['tb_kernel'] = dict(
+        max_abs_err=err,
+        ms=_time_ms(lambda: traceback._tb_cuda(*args, **kw), 3),
+        plain_ms=_time_ms(lambda: traceback._tb_torch(*args, **kw), 1))
+    score, qend, lane, bits = got
+    T = Lq + banded.BW
+
+    def walk_plain():
+        return traceback._pack_walk(score, qend, lane, *traceback._walk_torch(
+            want[3], qend, lane, T))
+
+    out['walk_kernel'] = dict(
+        max_abs_err=_exact('walk_kernel', traceback._walk_cuda(
+            bits, score, qend, lane), walk_plain()),
+        ms=_time_ms(lambda: traceback._walk_cuda(bits, score, qend, lane),
+                    3),
+        plain_ms=_time_ms(walk_plain, 1))
+    del bits, got, want
+
     # mask_kernel: the filter's batch at L = 3072
     cfg = JunkFilterConfig()
     B, L = 512, 3072
@@ -213,13 +263,21 @@ def check_kernels(dev) -> dict:
     return out
 
 
-def _run(root, ref, fq, tag, dev):
-    from fslr_tpu_torch.pipeline import run_pipeline
+def _run(root, ref, fq, tag, dev, exact):
+    """One slice run: through the CLI with exact CIGARs (its default),
+    through run_pipeline without."""
     out = os.path.join(root, f'out_{tag}')
-    config = PipelineConfig(name='S', out=out, ref=ref,
-                            primers=('21q1', '17p6'), basecalled=fq,
-                            skip_clustering=True, exact_cigars=False)
-    run_pipeline(config, dev)
+    if exact:
+        from fslr_tpu_torch.cli import main
+        main(['--name', 'S', '--out', out, '--ref', ref, '--primers',
+              '21q1,17p6', '--basecalled', fq, '--skip-clustering',
+              '--device', str(dev)])
+    else:
+        from fslr_tpu_torch.pipeline import run_pipeline
+        run_pipeline(PipelineConfig(name='S', out=out, ref=ref,
+                                    primers=('21q1', '17p6'), basecalled=fq,
+                                    skip_clustering=True, exact_cigars=False),
+                     dev)
     return os.path.join(out, 'S')
 
 
@@ -228,33 +286,9 @@ def _read_bed(path):
         return list(csv.DictReader(fh, delimiter='\t'))
 
 
-def run_slice(dev, root) -> dict:
-    """The main path at full width: 10k reads, 2 x 50 Mbp reference."""
-    import bench
-    t0 = time.perf_counter()
-    ref, fq = bench.make_dataset(root, SLICE_READS, 20, ref_mb=SLICE_REF_BP)
-    t_data = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    base = _run(root, ref, fq, 'slice', dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f'{k} was not launched by the main path')
-    for suffix in ('.bwa_dodi.bam', '.bwa_dodi.bam.bai', '.mappings.bed',
-                   '.filter_counts_summary.csv', '.timings.json',
-                   '.without_primers.fq'):
-        if not os.path.exists(base + suffix):
-            raise AssertionError(f'missing artifact {base}{suffix}')
-    rows = _read_bed(base + '.mappings.bed')
-    if not rows:
-        raise AssertionError('mappings.bed has no rows')
-    # planted truth: read r{i} carries chrB[600_000 + (i % 20) * span ...]
+def _recall(rows) -> float:
+    """Share of reads whose planted chrB segment is in mappings.bed: read
+    r{i} carries chrB[600_000 + (i % 20) * span ...]."""
     span = max(1, min(40_000, (SLICE_REF_BP - 700_000) // 20))
     found = set()
     for r in rows:
@@ -262,40 +296,173 @@ def run_slice(dev, root) -> dict:
         bpos = 600_000 + (i % 20) * span
         if r['chrom'] == 'chrB' and abs(int(r['rstart']) - 1 - bpos) <= 50:
             found.add(i)
-    recall = len(found) / SLICE_READS
-    if recall < 0.99:
-        raise AssertionError(f'planted chrB segment found in {recall:.4f} '
-                             f'of reads')
-    with open(base + '.timings.json') as fh:
-        stages = json.load(fh)['timings_s']
-    print(f'slice: {SLICE_READS} reads, dataset {t_data:.2f} s, pipeline '
-          f'{wall:.2f} s, {SLICE_READS / wall:.1f} reads/s, peak device '
-          f'memory {peak / 2**30:.3f} GiB, chrB recall {recall:.4f}, '
-          f'bed rows {len(rows)}')
-    print('slice stages (s): ' + json.dumps(stages))
-    print('slice launches: ' + json.dumps(launches))
-    return launches
+    return len(found) / SLICE_READS
+
+
+def _replay(cigar, qcodes, rcodes, pos, sc) -> int:
+    """Score of a record's path, replayed from its CIGAR (the kernel's
+    scoring: +match / mismatch, N = mismatch, a gap of n costs
+    open + n * extend)."""
+    qi, ri, score = 0, pos, 0
+    for n, op in cigar:
+        if op in 'SH':
+            qi += n
+        elif op == 'M':
+            a = qcodes[qi:qi + n]
+            b = rcodes[ri:ri + n]
+            b = np.concatenate([b, np.full(n - len(b), 4, np.uint8)])
+            m = int(np.sum((a == b) & (a < 4) & (b < 4)))
+            score += m * sc.match + (n - m) * sc.mismatch
+            qi += n
+            ri += n
+        else:
+            score -= abs(sc.gap_open) + abs(sc.gap_extend) * n
+            qi += n if op == 'I' else 0
+            ri += n if op == 'D' else 0
+    return score
+
+
+def check_bam(base, ref_path) -> dict:
+    """Every primary's CIGAR spans its sequence; sampled AS tags equal
+    their CIGAR replays against the reference.
+
+    A record with clips and no M/I/D is fslr_tpu's own behaviour, kept
+    for parity (ROADMAP.md section 3; tests/test_torch_align_exact.py
+    plants one): when two band columns tie at the best score, the query
+    end and the lane are taken from different columns, the walk starts off
+    the best cell and stops at once.  Each such record must have that
+    signature (clips spanning the read, AS > 0), they may be at most
+    CLIPS_ONLY_MAX of the records, and the sample is drawn from the
+    others."""
+    from fslr_tpu.encode import encode, revcomp_str
+    from fslr_tpu.index.reference import load_reference
+    from fslr_tpu.io.bam import read_bam
+    _, _, recs = read_bam(base + '.bwa_dodi.bam')
+    primary = {}
+    for r in recs:
+        if r.flag & 2048:
+            continue
+        qspan = sum(n for n, op in r.cigar if op in 'MIS')
+        if qspan != len(r.seq) or not r.seq:
+            raise AssertionError(f'{r.qname}: CIGAR spans {qspan} of '
+                                 f'{len(r.seq)} bases')
+        primary[r.qname] = r
+    ref = load_reference(ref_path)
+    contigs = [ref.codes[ref.offsets[i]:ref.offsets[i + 1]]
+               for i in range(len(ref.names))]
+    sc = PipelineConfig().align.scoring
+    core = [k for k, r in enumerate(recs)
+            if any(op in 'MID' for _, op in r.cigar)]
+    for k in sorted(set(range(len(recs))) - set(core)):
+        r = recs[k]
+        clips = sum(n for n, op in r.cigar if op in 'SH')
+        if clips != len(primary[r.qname].seq) or r.tags['AS'] <= 0:
+            raise AssertionError(
+                f'{r.qname} at {r.ref_id}:{r.pos}: CIGAR {r.cigar} with '
+                f'AS {r.tags["AS"]} is not a clips-only tie record')
+    if len(recs) - len(core) > CLIPS_ONLY_MAX * len(recs):
+        raise AssertionError(f'{len(recs) - len(core)} of {len(recs)} '
+                             f'records have no M/I/D')
+    pick = np.random.default_rng(7).choice(
+        core, min(AS_SAMPLE, len(core)), replace=False)
+    for k in pick.tolist():
+        r = recs[k]
+        p = primary[r.qname]
+        seq = p.seq if p.is_reverse == r.is_reverse else revcomp_str(p.seq)
+        if r.infer_read_length() != len(seq):
+            raise AssertionError(f'{r.qname}: CIGAR read length '
+                                 f'{r.infer_read_length()} != {len(seq)}')
+        got = _replay(r.cigar, encode(seq), contigs[r.ref_id], r.pos, sc)
+        if got != r.tags['AS']:
+            raise AssertionError(f'{r.qname} at {r.ref_id}:{r.pos}: AS '
+                                 f'{r.tags["AS"]} != replayed {got}')
+    n_indel = sum(any(op in 'ID' for _, op in r.cigar) for r in recs)
+    return dict(records=len(recs), primaries=len(primary),
+                as_replayed=len(pick), no_core_ops=len(recs) - len(core),
+                with_indels=n_indel)
+
+
+def run_slice(dev, root) -> dict:
+    """The main path at full width through the CLI (exact CIGARs): 10k
+    reads, 2 x 50 Mbp reference; then the earlier path (exact_cigars=False)
+    on the same data."""
+    import bench
+    t0 = time.perf_counter()
+    ref, fq = bench.make_dataset(root, SLICE_READS, 20, ref_mb=SLICE_REF_BP)
+    t_data = time.perf_counter() - t0
+    results = {}
+    for exact in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        base = _run(root, ref, fq, f'slice_{exact}', dev, exact)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        want = KERNELS if exact else EARLIER_PATH
+        for k in want:
+            if launches[k] <= 0:
+                raise AssertionError(f'{k} was not launched by the path '
+                                     f'(exact_cigars={exact})')
+        if not exact and (launches['tb_kernel'] or launches['walk_kernel']):
+            raise AssertionError('exact_cigars=False launched a traceback '
+                                 'kernel')
+        for suffix in ('.bwa_dodi.bam', '.bwa_dodi.bam.bai',
+                       '.mappings.bed', '.filter_counts_summary.csv',
+                       '.timings.json', '.without_primers.fq'):
+            if not os.path.exists(base + suffix):
+                raise AssertionError(f'missing artifact {base}{suffix}')
+        rows = _read_bed(base + '.mappings.bed')
+        recall = _recall(rows)
+        if recall < 0.99:
+            raise AssertionError(f'planted chrB segment found in '
+                                 f'{recall:.4f} of reads')
+        with open(base + '.timings.json') as fh:
+            stages = json.load(fh)['timings_s']
+        print(f'slice (exact_cigars={exact}): {SLICE_READS} reads, dataset '
+              f'{t_data:.2f} s, pipeline {wall:.2f} s, '
+              f'{SLICE_READS / wall:.1f} reads/s, peak device memory '
+              f'{peak / 2**30:.3f} GiB, chrB recall {recall:.4f}, bed rows '
+              f'{len(rows)}')
+        print('slice stages (s): ' + json.dumps(stages))
+        print('slice launches: ' + json.dumps(launches))
+        if exact:
+            t0 = time.perf_counter()
+            bam = check_bam(base, ref)
+            print(f'slice BAM: {json.dumps(bam)}, '
+                  f'checked in {time.perf_counter() - t0:.2f} s')
+        results[exact] = launches
+    return results[True]
 
 
 def cross_check(dev, root):
-    """200 reads on the card and on the CPU: artifacts byte-equal."""
+    """200 reads on the card and on the CPU, with and without exact
+    CIGARs: artifacts byte-equal."""
     import bench
     root = os.path.join(root, 'cross')
     os.makedirs(root)
     ref, fq = bench.make_dataset(root, CROSS_READS)
-    base_g = _run(root, ref, fq, 'card', dev)
-    base_c = _run(root, ref, fq, 'cpu', torch.device('cpu'))
-    for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):
-        with open(base_g + suffix, 'rb') as a, open(base_c + suffix, 'rb') as b:
-            if a.read() != b.read():
-                raise AssertionError(f'{suffix}: card and CPU runs differ')
-    with open(base_g + '.bwa_dodi.bam', 'rb') as a, \
-            open(base_c + '.bwa_dodi.bam', 'rb') as b:
-        if gzip.decompress(a.read()) != gzip.decompress(b.read()):
-            raise AssertionError('BAM records: card and CPU runs differ')
-    n_rows = len(_read_bed(base_g + '.mappings.bed'))
-    print(f'cross-check: {CROSS_READS} reads, card == CPU for mappings.bed '
-          f'({n_rows} rows), filter_counts_summary.csv and BAM records')
+    for exact in (True, False):
+        base_g = _run(root, ref, fq, f'card_{exact}', dev, exact)
+        base_c = _run(root, ref, fq, f'cpu_{exact}', torch.device('cpu'),
+                      exact)
+        for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):
+            with open(base_g + suffix, 'rb') as a, \
+                    open(base_c + suffix, 'rb') as b:
+                if a.read() != b.read():
+                    raise AssertionError(f'{suffix}: card and CPU runs '
+                                         f'differ (exact_cigars={exact})')
+        with open(base_g + '.bwa_dodi.bam', 'rb') as a, \
+                open(base_c + '.bwa_dodi.bam', 'rb') as b:
+            if gzip.decompress(a.read()) != gzip.decompress(b.read()):
+                raise AssertionError(f'BAM records: card and CPU runs '
+                                     f'differ (exact_cigars={exact})')
+        n_rows = len(_read_bed(base_g + '.mappings.bed'))
+        print(f'cross-check (exact_cigars={exact}): {CROSS_READS} reads, '
+              f'card == CPU for mappings.bed ({n_rows} rows), '
+              f'filter_counts_summary.csv and BAM records')
 
 
 def main():

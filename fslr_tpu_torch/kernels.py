@@ -1,9 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels of ``csrc/``.
 
 At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, placed in
-``fslr_tpu_torch/_build/`` under a name that hashes the sources and flags,
-so a changed source rebuilds and an unchanged one loads at once.  The
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into one shared library with a plain C interface,
+placed in ``fslr_tpu_torch/_build/`` under a name that hashes the sources
+and flags, so a changed source rebuilds and an unchanged one loads at
+once.  The
 library is bound with ``ctypes``: every pointer and the stream pass as
 ``c_void_p``.  Each C entry point launches on the caller's stream and
 returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if that is
@@ -27,8 +29,10 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'csrc')
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                          '_build')
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
+COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
+                              '-c')
+LINK_FLAGS = ARCH_FLAGS + ('-shared',)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _lib = None
@@ -50,7 +54,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     """Path of the built library for the current sources (not built)."""
-    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, 'rb') as fh:
@@ -67,10 +71,35 @@ def build() -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{so}.{os.getpid()}.tmp'
     cu = [p for p in _sources() if p.endswith('.cu')]
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu],
-                         capture_output=True, text=True)
-    if res.returncode:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
+    objs = [f'{tmp}.{os.path.basename(p)}.o' for p in cu]
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for src, obj in zip(cu, objs):
+            procs.append(subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, '-o', obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        errors = []
+        for src, proc in zip(cu, procs):
+            _, err = proc.communicate()
+            if proc.returncode:
+                errors.append(f'{os.path.basename(src)} '
+                              f'({proc.returncode}):\n{err}')
+        if errors:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(errors))
+        res = subprocess.run([nvcc, *LINK_FLAGS, '-o', tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
+                               f'{res.stderr}')
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, so)
     return so
 
@@ -120,7 +149,10 @@ SW = Kernel('sw_kernel', 'fslr_sw',
             (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P))
 BANDED = Kernel('banded_kernel', 'fslr_banded',
                 (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P))
-ALL = (MASK, SW_PACKED, SW, BANDED)
+TB = Kernel('tb_kernel', 'fslr_tb',
+            (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P))
+WALK = Kernel('walk_kernel', 'fslr_walk', (_P, _P, _P, _P, _I, _I, _P, _P))
+ALL = (MASK, SW_PACKED, SW, BANDED, TB, WALK)
 
 
 def reset_launches():

@@ -3,16 +3,19 @@
 Counterpart of the alignment half of ``fslr_tpu.pipeline._run_pipeline``:
 
   input FASTQ folder -> junk/concatemer filter -> primer ID + trim ->
-  ``without_primers.fq`` -> streamed align (seed, extend, select) ->
-  ``{name}.bwa_dodi.bam`` + ``.bai`` (approximate CIGARs),
+  ``without_primers.fq`` -> streamed align (seed, extend, select,
+  traceback emit, z-drop split) -> ``{name}.bwa_dodi.bam`` + ``.bai``,
   ``{name}.mappings.bed``, ``{name}.filter_counts_summary.csv`` and
   ``{name}.timings.json``.
 
 Every stage runs on the device it is given: plain PyTorch on the CPU, the
 CUDA kernels on a card.  The seed index loads on a host thread while the
 filter runs; BAM records and mapping-table rows of one align chunk are
-built on one host thread while the next chunk aligns.  Artifacts equal
-``fslr_tpu``'s for the same config with ``exact_cigars=False``.
+built on one host thread while the next chunk aligns.  With
+``exact_cigars`` (the default) the BAM carries the traceback CIGARs,
+encoded column-wise (``fslr_tpu.io.bam.encode_chunk_items``); without it,
+approximate ones.  Artifacts equal ``fslr_tpu``'s for the same config
+either way.
 """
 
 from __future__ import annotations
@@ -42,8 +45,6 @@ def _check_supported(config: PipelineConfig):
     """Raise NotImplementedError, naming the ROADMAP.md item that ports
     it, for every setting outside this package's slice."""
     todo = [
-        (not config.exact_cigars, 'exact_cigars=True',
-         'kernel #5 (traceback) and the exact-CIGAR emit + z-drop path'),
         (config.reference_mask is None, 'reference_mask',
          'the masked reference and the sharded index'),
         (config.skip_clustering and not config.skip_alignment,
@@ -127,12 +128,25 @@ def _encode_chunk(aln, qnames, seqs, fa, off, bam_items):
             tags={'AS': int(aln.score[i])})))
 
 
+def _encode_columnar(aln, fa, off, bam_items):
+    """BAM records of one align chunk in one vectorized pass, with the
+    exact CIGARs (every row of an exact-CIGAR run has an emit stream)."""
+    buf, ofs, plens, rids, poss, rends = bamio.encode_chunk_items(
+        aln, off, fa._names, fa.name_off, fa.codes, fa.seq_off, fa._quals,
+        fa.qual_off)
+    mv = memoryview(buf)
+    bam_items.extend(
+        (r, p, e, mv[o:o + ln]) for r, p, e, o, ln in zip(
+            rids.tolist(), poss.tolist(), rends.tolist(), ofs.tolist(),
+            plens.tolist()))
+
+
 def run_pipeline(config: PipelineConfig, device: torch.device):
     """Run filter -> primers -> align -> BAM + mappings.bed on ``device``.
 
-    Takes ``skip_clustering=True, exact_cigars=False, n_processes=1``, no
-    reference_mask, no consensus and an unsharded index; anything else
-    raises NotImplementedError.  Input files are processed one after
+    Takes ``skip_clustering=True, n_processes=1``, no reference_mask, no
+    consensus and an unsharded index; anything else raises
+    NotImplementedError.  Input files are processed one after
     another (``procs`` is not used)."""
     if not isinstance(device, torch.device):
         raise TypeError(f'device must be a torch.device, not {device!r}')
@@ -224,7 +238,10 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
     def _post_chunk(aln, qnames, seqs, fa, off):
         t0 = time.perf_counter()
         items: list = []
-        _encode_chunk(aln, qnames, seqs, fa, off, items)
+        if not config.exact_cigars:
+            _encode_chunk(aln, qnames, seqs, fa, off, items)
+        elif len(aln):
+            _encode_columnar(aln, fa, off, items)
         t1 = time.perf_counter()
         table = mapping_table.mapping_table(
             aln, qnames, seqs, ref.names, config.regions, panel.seqs)
@@ -252,7 +269,7 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
                 with stage('align'):
                     aln = align_stage.align_batch(
                         seqs, ref, didx, config, regions_path=config.regions,
-                        codes=fa.codes_slice(off, hi))
+                        codes=fa.codes_slice(off, hi), timer=timer)
                 pending.append(post_pool.submit(
                     _post_chunk, aln, qnames, seqs, fa, off))
                 while len(pending) > 2:

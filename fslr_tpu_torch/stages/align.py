@@ -1,7 +1,8 @@
-"""Alignment stage: seed -> candidate bands -> banded extension -> selection.
+"""Alignment stage: seed -> candidate bands -> banded extension -> selection
+-> traceback emit -> z-drop split.
 
-Counterpart of ``fslr_tpu/stages/align.py`` for an unsharded index and
-approximate CIGARs (``exact_cigars=False``).  Per read batch:
+Counterpart of ``fslr_tpu/stages/align.py`` for an unsharded index.  Per
+read batch:
 
   1. seeding of both strands against the device-resident index
      (ops/seed.py) gives candidate diagonal bands;
@@ -12,7 +13,12 @@ approximate CIGARs (``exact_cigars=False``).  Per read batch:
      begins;
   4. the dodi-equivalent selection DP (ops/selection.py) with optional
      region bias picks each read's alignments; the first best-scoring one
-     is primary; MAPQ follows the bwa-mem single-end model.
+     is primary; MAPQ follows the bwa-mem single-end model;
+  5. with ``exact_cigars`` (the default), the traceback extension
+     (ops/traceback.banded_extend) runs on the selected alignments only
+     and gives their CIGARs (columnar RLE) and walk-derived begins; then
+     the z-drop split cuts alignments at indel runs that bwa's z-drop
+     would not have bridged (host numpy).
 
 Alignment records carry query coordinates in record orientation plus the
 strand, as the JAX package's do.
@@ -20,15 +26,16 @@ strand, as the JAX package's do.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 from fslr_tpu.config import AlignConfig, PipelineConfig
-from fslr_tpu.encode import bucket_length
+from fslr_tpu.encode import _COMP, bucket_length
 from fslr_tpu.index.reference import Reference, SeedIndex
-from fslr_tpu_torch.ops import banded, seed, selection
+from fslr_tpu_torch.ops import banded, seed, selection, traceback
 
 _SLICE_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
                   6144, 8192, 12288, 16384, 24576, 32768)
@@ -37,6 +44,7 @@ _SEED_KEYS = ('valid', 'count', 'diag', 'qmin', 'qmax', 'wsum')
 # (4^k * (1 + C) int32 on the device); larger caps read counts/positions.
 _MAX_TABLE_C = 8
 _SEED_HITS = 1 << 23      # rows x sampled seeds x cap per seeding call
+_EMIT_BITS = 1 << 30      # traceback codes per emit call: SL x 64 B a row
 
 
 @dataclasses.dataclass
@@ -54,9 +62,28 @@ class Alignments:
     mapq: np.ndarray
     is_primary: np.ndarray    # bool
     overlaps_region: np.ndarray  # bool (all False without --regions)
+    # columnar exact-CIGAR RLE (has, cnt, flat_len, flat_op), op codes
+    # 0/1/2 = M/I/D -- the form io/bam.encode_chunk_items consumes
+    cig_rle: tuple | None = None
 
     def __len__(self):
         return len(self.read_idx)
+
+    def cigar_lists(self):
+        """Per-alignment [(len, op_char), ...] core CIGARs (None where no
+        emit stream exists), from cig_rle."""
+        if self.cig_rle is None:
+            return None
+        has, cnt, flat_len, flat_op = self.cig_rle
+        out = [None] * len(self)
+        ends = np.cumsum(cnt)
+        starts = ends - cnt
+        ll = flat_len.tolist()
+        oo = flat_op.tolist()
+        for i in np.flatnonzero(has):
+            out[i] = [(ll[t], 'MID'[oo[t]])
+                      for t in range(starts[i], ends[i])]
+        return out
 
 
 def empty_alignments() -> Alignments:
@@ -91,7 +118,9 @@ class Cands(_Cols):
 
 @dataclasses.dataclass
 class CandAln(_Cols):
-    """Candidate alignments before selection (score pass coordinates)."""
+    """Candidate alignments before selection (score pass coordinates),
+    with the extension geometry that the traceback emit of the selected
+    rows re-runs (global genome coordinates; one genome)."""
     read_idx: np.ndarray
     strand_rev: np.ndarray
     chrom_idx: np.ndarray
@@ -101,6 +130,12 @@ class CandAln(_Cols):
     qend_o: np.ndarray       # exclusive
     qlen: np.ndarray
     score: np.ndarray
+    ext_ws: np.ndarray       # window start
+    ext_qlo: np.ndarray      # query slice start (strand orientation)
+    ext_qlen: np.ndarray     # kernel qlens value (slice length)
+    ext_sl: np.ndarray       # slice bucket (kernel row width)
+    ext_cmin: np.ndarray     # contig lower bound
+    ext_cmax: np.ndarray     # contig upper bound
 
 
 # ---------------------------------------------------------------------------
@@ -359,7 +394,8 @@ def _extend_rows(cands: Cands, cat_d, off: np.ndarray, ref: Reference,
     acfg = config.align
     n = len(cands)
     if n == 0:
-        return CandAln(*([np.zeros(0, np.int64)] * 9))
+        return CandAln(*([np.zeros(0, np.int64)]
+                         * len(dataclasses.fields(CandAln))))
     dev = cat_d.device
     margin = acfg.extension_margin
     Lq = np.diff(off)[cands.ridx]
@@ -412,7 +448,12 @@ def _extend_rows(cands: Cands, cat_d, off: np.ndarray, ref: Reference,
     return CandAln(read_idx=cands.ridx[ck], strand_rev=cands.srev[ck],
                    chrom_idx=ci_ref.astype(np.int64), rstart=rbegin - lo_c,
                    rend=rend - lo_c, qstart_o=qlo[ck] + qb,
-                   qend_o=qlo[ck] + qend + 1, qlen=Lq[ck], score=score)
+                   qend_o=qlo[ck] + qend + 1, qlen=Lq[ck], score=score,
+                   ext_ws=ws_all[ck], ext_qlo=qlo[ck],
+                   ext_qlen=np.minimum(qhi - qlo, sl_of)[ck]
+                   .astype(np.int32),
+                   ext_sl=sl_of[ck].astype(np.int32), ext_cmin=cmin_all[ck],
+                   ext_cmax=cmax_all[ck])
 
 
 # ---------------------------------------------------------------------------
@@ -432,6 +473,14 @@ def _build_regions(regions_path, names):
                 continue
             per.setdefault(f[0], []).append((int(f[1]), int(f[2])))
     return {k: np.array(sorted(v)) for k, v in per.items()}
+
+
+def _overlaps_region(regions, chrom_name, start, end):
+    """Closed-interval overlap of [start, end] with a contig's regions."""
+    iv = regions.get(chrom_name)
+    if iv is None or len(iv) == 0:
+        return False
+    return bool(np.any((iv[:, 0] < end) & (start < iv[:, 1])))
 
 
 # bwa-mem mapQ model constants (mem_approx_mapq_se defaults)
@@ -459,10 +508,14 @@ def _bwa_style_mapq(s1, s2, span, rspan, sub_n, match_a: int,
     return np.clip(mq, 0, 60)
 
 
-def _select_and_finalize(ca: CandAln, ref: Reference, config: PipelineConfig,
-                         regions_path: str | None,
-                         device: torch.device) -> Alignments:
+def _select_and_finalize(ca: CandAln, ref: Reference, didx: DeviceIndex,
+                         config: PipelineConfig, regions_path: str | None,
+                         cat: np.ndarray, off: np.ndarray, cat_d,
+                         timer=None) -> Alignments:
+    """Dedup, selection, walk-derived begins and CIGARs (exact_cigars),
+    primary flags, MAPQ, then the z-drop split -- fslr_tpu's order."""
     acfg = config.align
+    device = didx.genome.device
     regions = _build_regions(regions_path, ref.names)
     if len(ca) == 0:
         return empty_alignments()
@@ -528,6 +581,16 @@ def _select_and_finalize(ca: CandAln, ref: Reference, config: PipelineConfig,
     sel_mask[val] = chosen[bb, cc]
     sel_idx = np.flatnonzero(sel_mask)
     n_sel = len(sel_idx)
+    if config.exact_cigars:
+        with timer.stage('align_emit') if timer else contextlib.nullcontext():
+            cig_rle, (qs_walk, rs_walk) = _emit_selected(
+                ca, sel_idx, cat_d, off, didx, config)
+        # walk-derived begins replace the reverse-pass ones, so that
+        # records and their CIGARs describe the same co-optimal path
+        ca.qstart_o[sel_idx] = qs_walk
+        ca.rstart[sel_idx] = rs_walk
+    else:
+        cig_rle = _no_emits(n_sel)
 
     out = Alignments(
         read_idx=ca.read_idx[sel_idx].astype(np.int32),
@@ -542,15 +605,11 @@ def _select_and_finalize(ca: CandAln, ref: Reference, config: PipelineConfig,
         mapq=np.zeros(n_sel, np.int32),
         is_primary=np.zeros(n_sel, bool),
         overlaps_region=ov_any[sel_idx],
+        cig_rle=cig_rle,
     )
     if not n_sel:
         return out
-    # primary = the first max-score alignment of each read
-    ordr = np.lexsort((np.arange(n_sel), -out.score, out.read_idx))
-    rid_s = out.read_idx[ordr]
-    first_m = np.ones(n_sel, bool)
-    first_m[1:] = rid_s[1:] != rid_s[:-1]
-    out.is_primary[ordr[first_m]] = True
+    _mark_primary(out)
 
     # MAPQ: s2 = best unselected candidate of the read whose forward query
     # span overlaps the selected one by > 50%
@@ -581,17 +640,218 @@ def _select_and_finalize(ca: CandAln, ref: Reference, config: PipelineConfig,
     out.mapq[:] = _bwa_style_mapq(
         out.score, s2, span, (out.rend - out.rstart + 1).astype(np.int64),
         sub_n, match_a, abs(acfg.scoring.mismatch), acfg.seed_k * match_a)
-    return out
+    return _zdrop_split_rows(out, ca, sel_idx, regions, ref, config, cat, off)
+
+
+def _no_emits(n: int):
+    return (np.zeros(n, bool), np.zeros(n, np.int64),
+            np.zeros(0, np.int64), np.zeros(0, np.int64))
+
+
+def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
+                   didx: DeviceIndex, config: PipelineConfig):
+    """Traceback extension over the selected candidates only
+    (fslr_tpu.stages.align._emit_selected): rows grouped by slice bucket
+    and chunked so that a call's codes take about _EMIT_BITS bytes; all
+    results come back in two transfers.
+
+    Returns (cig_rle, (qstart_o, rstart)): the columnar RLE (has, cnt,
+    flat_len, flat_op) in selected order, op codes 0/1/2 = M/I/D, and the
+    walk-derived begins (contig-local to ext_cmin)."""
+    n = len(sel_idx)
+    if not n:
+        return _no_emits(0), (np.zeros(0, np.int64), np.zeros(0, np.int64))
+    dev = cat_d.device
+    sl = ca.ext_sl[sel_idx].astype(np.int64)
+    ri = ca.read_idx[sel_idx]
+    qlo = ca.ext_qlo[sel_idx]
+    ws = ca.ext_ws[sel_idx]
+    cmin = ca.ext_cmin[sel_idx]
+    rows = (off[ri] + qlo, off[ri] + ca.qlen[sel_idx] - qlo,
+            ca.strand_rev[sel_idx], ca.ext_qlen[sel_idx].astype(np.int32),
+            ws, cmin, ca.ext_cmax[sel_idx])
+    pending = []          # (selected rows, (6, n) packed, emits)
+    for SL in np.unique(sl):
+        SL = int(SL)
+        gall = np.flatnonzero(sl == SL)
+        rows_per = max(1, _EMIT_BITS // (SL * 64))
+        for o in range(0, len(gall), rows_per):
+            g = gall[o:o + rows_per]
+            sf, er, srev, qlens, ws_g, cmin_g, cmax_g = (
+                torch.from_numpy(np.ascontiguousarray(a[g])).to(dev)
+                for a in rows)
+            q = _query_rows(cat_d, sf, er, srev, qlens, SL)
+            pending.append((g, *traceback.banded_extend(
+                q, qlens, ws_g, cmin_g, cmax_g, didx.genome,
+                config.align.scoring)))
+    allp = torch.cat([p.reshape(-1) for _, p, _ in pending]).cpu().numpy()
+    alle = torch.cat([e.reshape(-1) for _, _, e in pending]).cpu().numpy()
+    qs_walk = np.zeros(n, np.int64)
+    lf_walk = np.zeros(n, np.int64)
+    seg_rows_l, seg_len_l, seg_op_l = [], [], []
+    po = eo = 0
+    for g, p, e in pending:
+        p_np = allp[po:po + p.numel()].reshape(tuple(p.shape))
+        e_np = alle[eo:eo + e.numel()].reshape(tuple(e.shape))
+        po += p.numel()
+        eo += e.numel()
+        _, _, _, qs_walk[g], lf_walk[g] = traceback.finalize_scores(p_np)
+        sr, sl_, so_ = traceback.decode_emit_rle(e_np)
+        seg_rows_l.append(g[sr])
+        seg_len_l.append(sl_)
+        seg_op_l.append(so_)
+    seg_rows = np.concatenate(seg_rows_l)
+    # groups leave rows unordered across buckets; a stable sort by row
+    # restores selected order and keeps each row's op order
+    ordr = np.argsort(seg_rows, kind='stable')
+    cnt = np.bincount(seg_rows, minlength=n).astype(np.int64)
+    cig_rle = (np.ones(n, bool), cnt,
+               np.concatenate(seg_len_l).astype(np.int64)[ordr],
+               np.concatenate(seg_op_l)[ordr])
+    return cig_rle, (qlo + qs_walk, ws + qs_walk + lf_walk - cmin)
+
+
+def _zdrop_split_rows(out: Alignments, ca: CandAln, sel_idx: np.ndarray,
+                      regions, ref: Reference, config: PipelineConfig,
+                      cat: np.ndarray, off: np.ndarray) -> Alignments:
+    """bwa z-drop equivalent (fslr_tpu.stages.align._zdrop_split_rows):
+    a selected alignment with an interior indel run whose affine penalty
+    exceeds ``zdrop`` is cut at those runs; each piece's score is
+    replayed on the host from the query and reference codes (+match /
+    mismatch, N = mismatch, a gap run g costs open + ext*g), pieces below
+    the dodi floor are dropped, edge indel runs of a piece are trimmed,
+    and primary flags are re-derived.  MAPQ is inherited from the fused
+    parent; split rows keep their place, other rows are untouched."""
+    acfg = config.align
+    zdrop = acfg.zdrop
+    if not zdrop or not len(out):
+        return out
+    has, cnt, flat_len, flat_op = out.cig_rle
+    if not np.any(has):
+        return out
+    sc = acfg.scoring
+    gap_open = abs(sc.gap_open)
+    gap_ext = abs(sc.gap_extend)
+    # smallest interior gap with penalty open + ext*g > zdrop
+    g_split = (zdrop - gap_open) // gap_ext + 1
+    ends = np.cumsum(cnt)
+    starts = ends - cnt
+    n_rows = len(out)
+    seg_row = np.repeat(np.arange(n_rows), cnt)
+    big = (flat_len >= g_split) & (flat_op != 0)
+    if not np.any(big):
+        return out
+    cmin_sel = ca.ext_cmin[sel_idx]
+    keep_seg = np.ones(len(flat_len), bool)
+    pieces_per_row = np.ones(n_rows, np.int64)
+    row_pieces: dict[int, list] = {}
+    for r in np.unique(seg_row[big]).tolist():
+        sl = flat_len[starts[r]:ends[r]]
+        so = flat_op[starts[r]:ends[r]]
+        n_seg = len(sl)
+        bounds = np.flatnonzero((sl >= g_split) & (so != 0))
+        # record-orientation query codes for the replay
+        o = off[int(out.read_idx[r])]
+        L = int(out.qlen[r])
+        qrec = (_COMP[cat[o:o + L]][::-1] if out.strand_rev[r]
+                else cat[o:o + L])
+        rabs0 = int(cmin_sel[r] + out.rstart[r])
+        qoff = np.zeros(n_seg + 1, np.int64)
+        roff = np.zeros(n_seg + 1, np.int64)
+        np.cumsum(np.where(so != 2, sl, 0), out=qoff[1:])   # M, I
+        np.cumsum(np.where(so != 1, sl, 0), out=roff[1:])   # M, D
+        q0 = int(out.qstart_o[r])
+        lo = 0
+        plist = []
+        for b in np.append(bounds, n_seg).tolist():
+            # segments [lo, b); trim edge indels (a local alignment never
+            # starts or ends in a gap)
+            while lo < b and so[lo] != 0:
+                lo += 1
+            hi = b
+            while hi > lo and so[hi - 1] != 0:
+                hi -= 1
+            if hi > lo:
+                score = 0
+                for t in range(lo, hi):
+                    ln = int(sl[t])
+                    if so[t] == 0:
+                        a = qrec[q0 + int(qoff[t]):q0 + int(qoff[t]) + ln]
+                        bref = ref.codes[rabs0 + int(roff[t]):
+                                         rabs0 + int(roff[t]) + ln]
+                        m = int(np.sum((a == bref) & (a < 4) & (bref < 4)))
+                        score += m * sc.match + (ln - m) * sc.mismatch
+                    else:
+                        score -= gap_open + gap_ext * ln
+                if score >= acfg.min_selected_score:
+                    plist.append(dict(
+                        lo=lo, hi=hi, qs=q0 + int(qoff[lo]),
+                        qe=q0 + int(qoff[hi]),
+                        rs=int(out.rstart[r]) + int(roff[lo]),
+                        re=int(out.rstart[r]) + int(roff[hi]),
+                        score=score))
+            lo = b + 1
+        seg_keep = np.zeros(n_seg, bool)
+        for p in plist:
+            seg_keep[p['lo']:p['hi']] = True
+        keep_seg[starts[r]:ends[r]] = seg_keep
+        pieces_per_row[r] = len(plist)
+        row_pieces[r] = plist
+
+    rep = np.repeat(np.arange(n_rows), pieces_per_row)
+    new = Alignments(
+        read_idx=out.read_idx[rep], chrom_idx=out.chrom_idx[rep],
+        rstart=out.rstart[rep], rend=out.rend[rep],
+        strand_rev=out.strand_rev[rep], qstart_o=out.qstart_o[rep],
+        qend_o=out.qend_o[rep], qlen=out.qlen[rep], score=out.score[rep],
+        mapq=out.mapq[rep], is_primary=np.zeros(len(rep), bool),
+        overlaps_region=out.overlaps_region[rep])
+    pos_of = np.concatenate([[0], np.cumsum(pieces_per_row)])[:-1]
+    new_cnt = np.zeros(len(rep), np.int64)
+    new_has = np.zeros(len(rep), bool)
+    # a surviving row's first slot keeps its cnt/has; split rows
+    # overwrite all their slots below
+    kept = pieces_per_row >= 1
+    new_cnt[pos_of[kept]] = cnt[kept]
+    new_has[pos_of[kept]] = has[kept]
+    for r, plist in row_pieces.items():
+        for k, p in enumerate(plist):
+            i = pos_of[r] + k
+            new.qstart_o[i] = p['qs']
+            new.qend_o[i] = p['qe']
+            new.rstart[i] = p['rs']
+            new.rend[i] = p['re'] - 1            # rend is inclusive
+            new.score[i] = p['score']
+            new_cnt[i] = p['hi'] - p['lo']
+            new_has[i] = True
+            if regions:
+                new.overlaps_region[i] = _overlaps_region(
+                    regions, ref.names[int(new.chrom_idx[i])],
+                    p['rs'] + 1, p['re'])
+    new.cig_rle = (new_has, new_cnt, flat_len[keep_seg], flat_op[keep_seg])
+    _mark_primary(new)
+    return new
+
+
+def _mark_primary(out: Alignments):
+    """Primary = the first max-score alignment of each read."""
+    n = len(out)
+    ordr = np.lexsort((np.arange(n), -out.score, out.read_idx))
+    rid_s = out.read_idx[ordr]
+    first_m = np.ones(n, bool)
+    first_m[1:] = rid_s[1:] != rid_s[:-1]
+    out.is_primary[ordr[first_m]] = True
 
 
 def align_batch(seqs: list[str], ref: Reference, didx: DeviceIndex,
                 config: PipelineConfig, regions_path: str | None = None,
-                codes: tuple[np.ndarray, np.ndarray] | None = None
-                ) -> Alignments:
+                codes: tuple[np.ndarray, np.ndarray] | None = None,
+                timer=None) -> Alignments:
     """Align a list of read sequences against the device-resident index;
     returns the selected alignments.  ``codes``: the reads as
     (concatenated 0-4 codes, offsets), when the caller already holds
-    them."""
+    them.  ``timer`` (a StageTimer) gets the traceback emit's time as
+    ``align_emit``."""
     if codes is None:
         from fslr_tpu.encode import encode_cat
         codes = encode_cat(seqs)
@@ -602,4 +862,5 @@ def align_batch(seqs: list[str], ref: Reference, didx: DeviceIndex,
     cands = _merge_near_diagonal(cands, config)
     cands = _chain_filter(cands, np.diff(off), config)
     ca = _extend_rows(cands, cat_d, off, ref, didx, config)
-    return _select_and_finalize(ca, ref, config, regions_path, device)
+    return _select_and_finalize(ca, ref, didx, config, regions_path, cat,
+                                off, cat_d, timer)

@@ -18,7 +18,7 @@ import torch
 
 from fslr_tpu.config import JunkFilterConfig, PipelineConfig, ScoringConfig
 from fslr_tpu_torch import kernels
-from fslr_tpu_torch.ops import banded, ssw, tantan
+from fslr_tpu_torch.ops import banded, ssw, tantan, traceback
 
 pytestmark = pytest.mark.cuda
 
@@ -86,6 +86,59 @@ def test_banded_kernel_matches_plain(card):
                   banded._banded_torch(*args, **kw))
 
 
+def _tb_inputs(seed, N=200, Lq=384):
+    """Mutated copies planted in the windows; qlens not multiples of 8,
+    row 0 scores nothing."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 5, (N, Lq)).astype(np.uint8)
+    w = rng.integers(0, 5, (N, Lq + 256)).astype(np.uint8)
+    for r in range(1, N, 2):
+        off = int(rng.integers(0, 120))
+        seg = q[r, :300].copy()
+        seg[rng.random(300) < 0.05] = 1
+        seg = np.delete(seg, rng.integers(0, 300, 4))
+        w[r, off:off + len(seg)] = seg
+    qlens = rng.integers(0, Lq + 1, N).astype(np.int32)
+    qlens[1:6] = (13, 77, 8, 1, Lq - 3)
+    q[0] = 4
+    return q, w, qlens
+
+
+def _assert_bits_equal(got, want, qlens):
+    """Words holding steps < qlens equal the plain version's; the kernel
+    zeroes the words after them."""
+    words = (qlens.cpu().long() + 7) // 8
+    live = torch.arange(got.shape[1])[None, :] < words[:, None]
+    got, want = got.cpu(), want.cpu()
+    assert torch.equal(got[live], want[live])
+    assert not got[~live].any()
+
+
+def test_tb_kernel_matches_plain(card):
+    args = _on(card, *_tb_inputs(4))
+    kw = ssw._scores(ScoringConfig(gap_open_is_first_base=False))
+    before = kernels.TB.launches
+    got = traceback._tb_cuda(*args, **kw)
+    want = traceback._tb_torch(*args, **kw)
+    assert kernels.TB.launches == before + 1
+    _assert_equal(got[:3], want[:3])
+    assert float(want[0][0]) == 0.0
+    _assert_bits_equal(got[3], want[3], args[2])
+
+
+def test_walk_kernel_matches_plain(card):
+    args = _on(card, *_tb_inputs(5))
+    score, qend, lane, bits = traceback._tb_torch(
+        *args, **ssw._scores(ScoringConfig(gap_open_is_first_base=False)))
+    before = kernels.WALK.launches
+    got = traceback._walk_cuda(bits, score, qend, lane)
+    assert kernels.WALK.launches == before + 1
+    T = bits.shape[1] * 8 + 128
+    want = traceback._pack_walk(score, qend, lane,
+                                *traceback._walk_torch(bits, qend, lane, T))
+    _assert_equal(got, want)
+
+
 def test_mask_kernel_matches_plain(card):
     rng = np.random.default_rng(3)
     B, L = 64, 1024
@@ -111,7 +164,8 @@ def test_kernel_wrapper_rejects_bad_arguments(card):
         ssw._sw_cuda(q, t, qlens, tlens, **ssw._scores(ScoringConfig()))
 
 
-def test_slice_card_equals_cpu(card, tmp_path):
+@pytest.mark.parametrize('exact', [False, True])
+def test_slice_card_equals_cpu(card, tmp_path, exact):
     from __graft_entry__ import write_tiny_dataset
     from fslr_tpu_torch.pipeline import run_pipeline
     ref, fq = write_tiny_dataset(str(tmp_path))
@@ -120,7 +174,7 @@ def test_slice_card_equals_cpu(card, tmp_path):
         out = str(tmp_path / dev.type)
         run_pipeline(PipelineConfig(name='D', out=out, ref=ref,
                                     primers=('21q1', '17p6'), basecalled=fq,
-                                    skip_clustering=True, exact_cigars=False),
+                                    skip_clustering=True, exact_cigars=exact),
                      dev)
         bases.append(os.path.join(out, 'D'))
     for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):

@@ -73,6 +73,35 @@ def test_slice_runs_with_jax_pandas_click_blocked(tmp_path):
     assert int(res.stdout.split('SLICE_OK')[1]) > 1      # header + rows
 
 
+_CLI = r'''
+import os, sys
+for name in ('jax', 'pandas', 'click'):
+    sys.modules[name] = None          # any import of them now fails
+from __graft_entry__ import write_tiny_dataset
+from fslr_tpu_torch import cli
+
+root = sys.argv[1]
+ref, fq = write_tiny_dataset(root)
+out = os.path.join(root, 'out')
+cli.main(['--name', 'D', '--out', out, '--ref', ref, '--primers',
+          '21q1,17p6', '--basecalled', fq, '--skip-clustering',
+          '--device', 'cpu'])
+from fslr_tpu.io.bam import read_bam
+_, _, records = read_bam(os.path.join(out, 'D.bwa_dodi.bam'))
+assert records
+print('CLI_OK', len(open(os.path.join(out, 'D.mappings.bed')).readlines()))
+'''
+
+
+def test_cli_runs_with_jax_pandas_click_blocked(tmp_path):
+    """The CLI with exact CIGARs (its default) needs none of the three."""
+    res = subprocess.run([sys.executable, '-c', _CLI, str(tmp_path)],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert int(res.stdout.split('CLI_OK')[1]) > 1      # header + rows
+
+
 def test_chip_smoke_refuses_without_a_card(tmp_path):
     """No card: non-zero exit and no result line."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES='')

@@ -1,7 +1,8 @@
 """The port's slice end to end on the CPU: the golden scenario of
 tests/test_golden_snapshot.py through fslr_tpu_torch.pipeline, held to the
 golden mappings.bed and byte for byte to fslr_tpu's run of the same
-config (skip_clustering=True, exact_cigars=False)."""
+config (skip_clustering=True), with exact CIGARs (the default: traceback
+emit, z-drop split, columnar BAM) and with exact_cigars=False."""
 
 import gzip
 import os
@@ -20,10 +21,11 @@ ARTIFACTS = ('.mappings.bed', '.filter_counts_summary.csv',
              '.without_primers.fq', '.bwa_dodi.bam.bai')
 
 
-def _config(root, ref, fq, tag, **kw):
+def _config(root, ref, fq, tag, exact_cigars=False, **kw):
     return PipelineConfig(name='G', out=os.path.join(root, tag), ref=ref,
                           primers=('21q1', '17p6'), basecalled=fq,
-                          skip_clustering=True, exact_cigars=False, **kw)
+                          skip_clustering=True, exact_cigars=exact_cigars,
+                          **kw)
 
 
 def _read(path, mode='rb'):
@@ -47,7 +49,13 @@ def golden_runs(tmp_path_factory):
     for tag, kw in (('jax', {}), ('torch', {}),
                     ('jax_regions', dict(regions=regions)),
                     ('torch_regions', dict(regions=regions)),
-                    ('torch_chunked', dict(batch=_chunked_batch()))):
+                    ('torch_chunked', dict(batch=_chunked_batch())),
+                    ('jax_exact', dict(exact_cigars=True)),
+                    ('torch_exact', dict(exact_cigars=True)),
+                    ('jax_exact_regions', dict(exact_cigars=True,
+                                               regions=regions)),
+                    ('torch_exact_regions', dict(exact_cigars=True,
+                                                 regions=regions))):
         config = _config(root, ref, fq, tag, **kw)
         if tag.startswith('jax'):
             jax_run_pipeline(config, backend='jax')
@@ -99,6 +107,36 @@ def test_streamed_chunks_byte_identical(golden_runs):
         _bam_records(golden_runs['torch'])
 
 
+def test_exact_golden_mappings_bed(golden_runs):
+    df = pd.read_csv(golden_runs['torch_exact'] + '.mappings.bed', sep='\t')
+    gold = pd.read_csv(GOLDEN, sep='\t')
+    pd.testing.assert_frame_equal(
+        df.drop(columns=['fslr_version']).reset_index(drop=True),
+        gold.reset_index(drop=True), check_dtype=False)
+
+
+@pytest.mark.parametrize('suffix', ARTIFACTS)
+@pytest.mark.parametrize('tag', ['exact', 'exact_regions'])
+def test_exact_artifacts_byte_equal_to_fslr_tpu(golden_runs, tag, suffix):
+    assert _read(golden_runs[f'torch_{tag}'] + suffix) == \
+        _read(golden_runs[f'jax_{tag}'] + suffix)
+
+
+@pytest.mark.parametrize('tag', ['exact', 'exact_regions'])
+def test_exact_bam_records_equal_to_fslr_tpu(golden_runs, tag):
+    got = _bam_records(golden_runs[f'torch_{tag}'])
+    assert got == _bam_records(golden_runs[f'jax_{tag}'])
+    # traceback CIGARs differ from the approximate ones of the golden
+    # scenario's mutated read
+    assert got != _bam_records(golden_runs['torch'])
+
+
+def test_exact_timings_have_emit(golden_runs):
+    import json
+    stages = json.loads(_read(golden_runs['torch_exact'] + '.timings.json'))
+    assert 'align_emit' in stages['timings_s']
+
+
 def test_timings_written(golden_runs):
     import json
     stages = json.loads(_read(golden_runs['torch'] + '.timings.json'))
@@ -107,11 +145,11 @@ def test_timings_written(golden_runs):
 
 
 @pytest.mark.parametrize('kw', [
-    dict(exact_cigars=True), dict(reference_mask='mask.bed'),
-    dict(skip_clustering=False), dict(skip_alignment=True),
-    dict(n_processes=2), dict(run_consensus=True)],
-    ids=['exact_cigars', 'reference_mask', 'clustering', 'skip_alignment',
-         'n_processes', 'consensus'])
+    dict(reference_mask='mask.bed'), dict(skip_clustering=False),
+    dict(skip_alignment=True), dict(n_processes=2),
+    dict(run_consensus=True)],
+    ids=['reference_mask', 'clustering', 'skip_alignment', 'n_processes',
+         'consensus'])
 def test_settings_outside_the_slice_raise(tmp_path, kw):
     config = PipelineConfig(name='X', out=str(tmp_path / 'out'),
                             skip_clustering=True, exact_cigars=False)
