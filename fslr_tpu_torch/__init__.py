@@ -2,8 +2,12 @@
 kernels for NVIDIA Hopper.
 
 Beside the JAX package ``fslr_tpu`` (the reference), this package runs the
-same filter -> primer -> align -> BAM + mappings.bed path on an explicit
+same filter -> primer -> align -> BAM + mappings.bed -> breakpoint
+clustering [-> per-cluster consensus] path on an explicit
 ``torch.device``: plain PyTorch on the CPU, the kernels of ``csrc/`` on a
-CUDA card.  Host-only modules (config, encoding, panel, FASTQ/BAM I/O,
-reference index, stage timer) are imported from ``fslr_tpu``.
+CUDA card.  It imports nothing of ``fslr_tpu``: its host modules (config,
+encoding, panel, FASTQ/BAM I/O, reference index, stage timer) are its own
+copies, with the same dataclasses, defaults and file formats.
 """
+
+__version__ = '0.1.0'

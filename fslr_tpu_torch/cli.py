@@ -14,14 +14,12 @@ import os
 
 import torch
 
-import fslr_tpu
-from fslr_tpu.config import ClusterConfig, PipelineConfig
+import fslr_tpu_torch
+from fslr_tpu_torch.config import ClusterConfig, PipelineConfig
 
 _EPILOG = (
     "fslr_tpu's --mesh-devices (a JAX device mesh) has no counterpart yet: "
-    'its port is ROADMAP.md\'s "parallel/ over NCCL" item.  Clustering, '
-    "the reference's default, is not ported yet either: run with "
-    '--skip-clustering.')
+    'its port is ROADMAP.md\'s "parallel/ over NCCL" item.')
 
 
 def _existing_path(p: str) -> str:
@@ -34,7 +32,8 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog='fslr-tpu-torch', epilog=_EPILOG,
         description='fslr on PyTorch: FASTQ folder + primer panel in; '
-                    'BAM, mappings.bed and filter counts out.')
+                    'BAM, mappings.bed, cluster beds and filter counts '
+                    'out.')
     a = ap.add_argument
     a('--name', required=True, help='Sample name')
     a('--out', required=True, help='Output folder')
@@ -100,7 +99,7 @@ def _parser() -> argparse.ArgumentParser:
     a('--device', default='cuda',
       help='torch device to run on (cuda, cuda:N or cpu); a CUDA device '
            'needs a card, there is no fallback to the CPU  [default: cuda]')
-    a('--version', action='version', version=fslr_tpu.__version__)
+    a('--version', action='version', version=fslr_tpu_torch.__version__)
     return ap
 
 

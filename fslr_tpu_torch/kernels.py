@@ -152,7 +152,9 @@ BANDED = Kernel('banded_kernel', 'fslr_banded',
 TB = Kernel('tb_kernel', 'fslr_tb',
             (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P))
 WALK = Kernel('walk_kernel', 'fslr_walk', (_P, _P, _P, _P, _I, _I, _P, _P))
-ALL = (MASK, SW_PACKED, SW, BANDED, TB, WALK)
+PROF = Kernel('prof_kernel', 'fslr_prof',
+              (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P))
+ALL = (MASK, SW_PACKED, SW, BANDED, TB, WALK, PROF)
 
 
 def reset_launches():

@@ -15,8 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from fslr_tpu.config import ScoringConfig
 from fslr_tpu_torch import kernels
+from fslr_tpu_torch.config import ScoringConfig
 from fslr_tpu_torch.ops.ssw import (QP, _cummax_exclusive, _init_state,
                                     _scores, _shift_left)
 

@@ -21,8 +21,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from fslr_tpu.config import JunkFilterConfig
-from fslr_tpu.encode import NUM_SYMBOLS, encode, revcomp_str
+from fslr_tpu_torch.config import JunkFilterConfig
+from fslr_tpu_torch.encode import NUM_SYMBOLS, encode, revcomp_str
 
 # Telomere variant hexamers (the reference filter_junk_from_fq.py:208-209)
 TEL_TARGETS = ["CCCTAA", "CCCTGA", "CCCGAA", "CCCTAC", "CCCTCA", "CCCCAA",

@@ -24,8 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fslr_tpu.config import ScoringConfig
 from fslr_tpu_torch import kernels
+from fslr_tpu_torch.config import ScoringConfig
 
 NEG = -1e30
 QP = 128          # query lanes

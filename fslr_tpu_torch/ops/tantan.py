@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from fslr_tpu.config import JunkFilterConfig
 from fslr_tpu_torch import kernels
+from fslr_tpu_torch.config import JunkFilterConfig
 
 MAX_PERIOD = 128      # states per kernel block
 

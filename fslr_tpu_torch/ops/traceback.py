@@ -17,7 +17,7 @@ plain versions here run.  Source ties prefer F (strictly above the
 no-F value), then the diagonal, then E.
 
 The host decoders at the bottom are copied from the JAX module, which
-imports jax.
+imports jax.  The consensus engines decode walks with them too.
 """
 
 from __future__ import annotations
@@ -25,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fslr_tpu.config import ScoringConfig
 from fslr_tpu_torch import kernels
+from fslr_tpu_torch.config import ScoringConfig
 from fslr_tpu_torch.ops.banded import BW, _genome_windows
 from fslr_tpu_torch.ops.ssw import (NEG, _cummax_exclusive, _init_state,
                                     _scores, _shift_left, _shift_right)
@@ -242,6 +242,14 @@ def finalize_scores(packed):
     """Score/end/begin columns of a fetched ``packed`` array."""
     p = np.asarray(packed)
     return p[0], p[1], p[2], p[3], p[4]
+
+
+def finalize_extend(packed, emits_packed):
+    """Host decode of :func:`walk`'s output (fslr_tpu.ops.traceback.
+    finalize_extend): (score, qend, lane, qstart, l_fin, cigars)."""
+    score, qend, lane, qstart, l_fin, _ = np.asarray(packed)
+    return (score, qend, lane, qstart, l_fin,
+            decode_emit_rows(np.asarray(emits_packed)))
 
 
 # Byte-level boundary LUTs for decode_emit_rle: a packed byte holds 4

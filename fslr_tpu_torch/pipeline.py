@@ -1,19 +1,21 @@
 """Pipeline orchestrator on an explicit ``torch.device``.
 
-Counterpart of the alignment half of ``fslr_tpu.pipeline._run_pipeline``:
+Counterpart of ``fslr_tpu.pipeline._run_pipeline`` for one process:
 
   input FASTQ folder -> junk/concatemer filter -> primer ID + trim ->
   ``without_primers.fq`` -> streamed align (seed, extend, select,
   traceback emit, z-drop split) -> ``{name}.bwa_dodi.bam`` + ``.bai``,
-  ``{name}.mappings.bed``, ``{name}.filter_counts_summary.csv`` and
-  ``{name}.timings.json``.
+  ``{name}.mappings.bed``, ``{name}.filter_counts_summary.csv`` ->
+  breakpoint clustering -> ``{name}.mappings.cluster.bed`` and
+  ``{name}.mappings.representative.bed`` [-> with ``run_consensus``, the
+  per-cluster consensus stage] -> ``{name}.timings.json``.
 
 Every stage runs on the device it is given: plain PyTorch on the CPU, the
 CUDA kernels on a card.  The seed index loads on a host thread while the
 filter runs; BAM records and mapping-table rows of one align chunk are
 built on one host thread while the next chunk aligns.  With
 ``exact_cigars`` (the default) the BAM carries the traceback CIGARs,
-encoded column-wise (``fslr_tpu.io.bam.encode_chunk_items``); without it,
+encoded column-wise (``io.bam.encode_chunk_items``); without it,
 approximate ones.  Artifacts equal ``fslr_tpu``'s for the same config
 either way.
 """
@@ -30,15 +32,16 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from fslr_tpu.config import PipelineConfig
-from fslr_tpu.encode import revcomp_str
-from fslr_tpu.index import reference as refmod
-from fslr_tpu.instrument import StageTimer
-from fslr_tpu.io import bam as bamio
-from fslr_tpu.io.fastq import glob_input_files, read_reads
-from fslr_tpu.panel import load_panel
-from fslr_tpu_torch.stages import (align as align_stage, filter_junk,
-                                   find_primers, mapping_table)
+from fslr_tpu_torch.config import PipelineConfig
+from fslr_tpu_torch.encode import revcomp_str
+from fslr_tpu_torch.index import reference as refmod
+from fslr_tpu_torch.instrument import StageTimer
+from fslr_tpu_torch.io import bam as bamio
+from fslr_tpu_torch.io.fastq import glob_input_files, read_reads
+from fslr_tpu_torch.panel import load_panel
+from fslr_tpu_torch.stages import (align as align_stage, cluster,
+                                   consensus, filter_junk, find_primers,
+                                   mapping_table)
 
 
 def _check_supported(config: PipelineConfig):
@@ -47,13 +50,10 @@ def _check_supported(config: PipelineConfig):
     todo = [
         (config.reference_mask is None, 'reference_mask',
          'the masked reference and the sharded index'),
-        (config.skip_clustering and not config.skip_alignment,
-         'clustering (skip_clustering=False) or skip_alignment=True',
-         'the clustering host path'),
+        (not config.skip_alignment, 'skip_alignment=True',
+         'parallel/ over NCCL'),
         (config.n_processes == 1, 'n_processes > 1',
          'parallel/ over NCCL'),
-        (not config.run_consensus, 'run_consensus=True',
-         'consensus with kernel #6'),
     ]
     for ok, what, item in todo:
         if not ok:
@@ -142,12 +142,12 @@ def _encode_columnar(aln, fa, off, bam_items):
 
 
 def run_pipeline(config: PipelineConfig, device: torch.device):
-    """Run filter -> primers -> align -> BAM + mappings.bed on ``device``.
+    """Run filter -> primers -> align -> BAM + mappings.bed -> clustering
+    [-> consensus] on ``device``.
 
-    Takes ``skip_clustering=True, n_processes=1``, no reference_mask, no
-    consensus and an unsharded index; anything else raises
-    NotImplementedError.  Input files are processed one after
-    another (``procs`` is not used)."""
+    Takes ``n_processes=1``, no reference_mask, no skip_alignment and an
+    unsharded index; anything else raises NotImplementedError.  Input
+    files are processed one after another (``procs`` is not used)."""
     if not isinstance(device, torch.device):
         raise TypeError(f'device must be a torch.device, not {device!r}')
     _check_supported(config)
@@ -158,8 +158,9 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
     @contextlib.contextmanager
     def stage(name):
         # device work lands in its own stage: wait for it before the
-        # stage's clock stops
-        with timer.stage(name):
+        # stage's clock stops; under torch.profiler the stage is a named
+        # range (tools/profile_run.py reads it)
+        with timer.stage(name), torch.profiler.record_function(name):
             yield
             if device.type == 'cuda':
                 torch.cuda.synchronize(device)
@@ -303,6 +304,39 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
         fc.write('Filter counts:' + '\n')
         fc.write(','.join(str(k) for k in filter_counts.keys()) + '\n')
         fc.write(','.join(str(v) for v in filter_counts.values()) + '\n')
+
+    # the align stage's device tensors (genome, seed index) go before the
+    # clustering; the consensus stage uploads the index again
+    del didx
+
+    if not config.skip_clustering:
+        print('Making clusters')
+        with stage('read_mappings'):
+            bed = cluster.read_mappings(f'{basename}.mappings.bed')
+            chr_lengths = bamio.get_chromosome_lengths(
+                f'{basename}.bwa_dodi.bam')
+        with stage('clustering'):
+            res = cluster.cluster_stage(bed, chr_lengths, config.cluster,
+                                        device)
+        if res.no_clusters:
+            print('No clusters were found.')
+            timer.report(f'{basename}.timings.json')
+            return
+        with stage('write_cluster_beds'):
+            mapping_table.write_mappings_bed(
+                res.cluster_bed, f'{basename}.mappings.cluster.bed')
+            mapping_table.write_mappings_bed(
+                res.representative_bed,
+                f'{basename}.mappings.representative.bed')
+
+        if config.run_consensus:
+            print('Creating consensus sequences')
+            with stage('load_index'):
+                didx = align_stage.device_index(ref, sidx, device,
+                                                config.align)
+            with stage('consensus'):
+                consensus.run_consensus_stage(res.subgraphs, bed, ref, didx,
+                                              panel, config, device)
 
     timer.report(f'{basename}.timings.json')
     print('fslr finished', file=sys.stderr)

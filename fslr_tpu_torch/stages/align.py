@@ -32,9 +32,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from fslr_tpu.config import AlignConfig, PipelineConfig
-from fslr_tpu.encode import _COMP, bucket_length
-from fslr_tpu.index.reference import Reference, SeedIndex
+from fslr_tpu_torch.config import AlignConfig, PipelineConfig
+from fslr_tpu_torch.encode import _COMP, bucket_length
+from fslr_tpu_torch.index.reference import Reference, SeedIndex
 from fslr_tpu_torch.ops import banded, seed, selection, traceback
 
 _SLICE_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
@@ -853,7 +853,7 @@ def align_batch(seqs: list[str], ref: Reference, didx: DeviceIndex,
     them.  ``timer`` (a StageTimer) gets the traceback emit's time as
     ``align_emit``."""
     if codes is None:
-        from fslr_tpu.encode import encode_cat
+        from fslr_tpu_torch.encode import encode_cat
         codes = encode_cat(seqs)
     cat, off = codes
     device = didx.genome.device

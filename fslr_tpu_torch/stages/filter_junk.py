@@ -25,12 +25,12 @@ from collections import Counter
 import numpy as np
 import torch
 
-from fslr_tpu import instrument
-from fslr_tpu.config import PipelineConfig
-from fslr_tpu.encode import bucket_length, encode, revcomp
-from fslr_tpu.io.fastq import read_reads, records_to_arrays
-from fslr_tpu.panel import PrimerPanel
+from fslr_tpu_torch import instrument
+from fslr_tpu_torch.config import PipelineConfig
+from fslr_tpu_torch.encode import bucket_length, encode, revcomp
+from fslr_tpu_torch.io.fastq import read_reads, records_to_arrays
 from fslr_tpu_torch.ops import kmer_stats, ssw, tantan
+from fslr_tpu_torch.panel import PrimerPanel
 
 _HMM_ROWS_X_LEN = 1 << 21      # rows x length per repeat-mask batch
 _WINDOW_CHUNK = 8192           # concatemer windows per SW call
@@ -229,7 +229,7 @@ def run_file(path: str, panel: PrimerPanel, config: PipelineConfig,
     ``{out}/{name}.{uuid}.filtered_junk.fq`` (+ ``.junk.fq`` with
     keep_temp).  ``out_box`` receives {'path', 'reads'} so the primer
     stage can take the kept, masked reads without re-parsing the file."""
-    from fslr_tpu.io.native import _DECODE, FastxArrays
+    from fslr_tpu_torch.io.native import _DECODE, FastxArrays
 
     reads = read_reads(path)
     keep, flat_mask, junk, short, concat, counters = filter_junk_records(

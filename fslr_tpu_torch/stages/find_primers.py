@@ -16,12 +16,13 @@ from collections import Counter
 import numpy as np
 import torch
 
-from fslr_tpu import instrument
-from fslr_tpu.config import PipelineConfig
-from fslr_tpu.encode import encode, revcomp
-from fslr_tpu.io.fastq import FastxRecord, read_reads, records_to_arrays
-from fslr_tpu.panel import PrimerPanel
+from fslr_tpu_torch import instrument
+from fslr_tpu_torch.config import PipelineConfig
+from fslr_tpu_torch.encode import encode, revcomp
+from fslr_tpu_torch.io.fastq import (FastxRecord, read_reads,
+                                     records_to_arrays)
 from fslr_tpu_torch.ops import ssw
+from fslr_tpu_torch.panel import PrimerPanel
 
 ORIENT_COMBOS = (('F', 'R'), ('R', 'F'), ('F', 'F'), ('R', 'R'))
 _SW_KEYS = ('score', 'target_begin', 'target_end')

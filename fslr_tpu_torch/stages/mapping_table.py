@@ -20,7 +20,7 @@ import csv
 
 import numpy as np
 
-import fslr_tpu
+import fslr_tpu_torch
 from fslr_tpu_torch.stages.align import Alignments
 
 COLUMNS = ['chrom', 'rstart', 'rend', 'qname', 'n_alignments', 'aln_size',
@@ -76,7 +76,7 @@ def mapping_table(aln: Alignments, qnames: list[str], seqs: list[str],
                   primers: dict[str, str]) -> dict:
     """Build the mappings table.  ``qnames``/``seqs`` are indexed by
     aln.read_idx; ``primers`` maps primer name -> primer_seq."""
-    version = fslr_tpu.__version__
+    version = fslr_tpu_torch.__version__
     regions = build_regions(regions_path)
     cols = COLUMNS + (['overlaps_region'] if regions else [])
     n = len(aln)

@@ -12,10 +12,12 @@ from fslr_tpu.encode import decode
 from fslr_tpu.index.reference import build_seed_index
 from fslr_tpu.stages import align as jalign
 from fslr_tpu_torch.stages import align as talign
+from tests.test_torch_env import port_config
 from tests.oracles import random_seq
 from tests.test_torch_align_ops import _fusion_reads, _mk_ref
 
 CONFIG = PipelineConfig()
+TCONFIG = port_config(CONFIG)
 CPU = torch.device('cpu')
 COLUMNS = ('read_idx', 'chrom_idx', 'rstart', 'rend', 'strand_rev',
            'qstart_o', 'qend_o', 'qlen', 'score', 'mapq', 'is_primary',
@@ -33,8 +35,8 @@ def _both(seqs, ref, sidx, regions_path=None):
                               regions_path=regions_path, backend='jax')
     got = talign.align_batch(seqs, ref,
                              talign.device_index(ref, sidx, CPU,
-                                                 CONFIG.align),
-                             CONFIG, regions_path=regions_path)
+                                                 TCONFIG.align),
+                             TCONFIG, regions_path=regions_path)
     assert len(got) == len(want)
     for f in COLUMNS:
         np.testing.assert_array_equal(getattr(want, f), getattr(got, f),
@@ -131,7 +133,7 @@ def test_tied_band_columns_give_a_clips_only_record(ref_and_index):
 
 def test_exact_cigars_off_keeps_no_emits(ref_and_index):
     ref, sidx = ref_and_index
-    config = CONFIG.replace(exact_cigars=False)
+    config = TCONFIG.replace(exact_cigars=False)
     out = talign.align_batch(
         _fusion_reads(ref, np.random.default_rng(4)), ref,
         talign.device_index(ref, sidx, CPU, config.align), config)

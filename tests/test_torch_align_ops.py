@@ -18,10 +18,12 @@ from fslr_tpu_torch.ops import banded as tband
 from fslr_tpu_torch.ops import seed as tseed
 from fslr_tpu_torch.ops import selection as tsel
 from fslr_tpu_torch.stages import align as talign
+from tests.test_torch_env import port_config
 from tests.oracles import mutate, random_seq
 
 BWA_SC = ScoringConfig(gap_open_is_first_base=False)
 CONFIG = PipelineConfig(exact_cigars=False)
+TCONFIG = port_config(CONFIG)
 CPU = torch.device('cpu')
 
 
@@ -79,7 +81,7 @@ def _banded_rows(seed, N=6, Lq=256):
 def test_banded_sw_matches(backend):
     q, w, qlens = _banded_rows(0, N=4)
     want = jband.banded_sw(q, w, qlens, BWA_SC, backend=backend)
-    got = tband.banded_sw(*_t(q, w, qlens), BWA_SC)
+    got = tband.banded_sw(*_t(q, w, qlens), port_config(BWA_SC))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
@@ -105,7 +107,7 @@ def test_banded_extend_score_matches(sc):
         q, qlens, ws, cmin, cmax, jband.pack_codes_host(genome), sc,
         backend='jax'))
     got = tband.banded_extend_score(*_t(q, qlens, ws, cmin, cmax, genome),
-                                    sc).numpy()
+                                    port_config(sc)).numpy()
     assert want.shape == got.shape == (5, N)
     np.testing.assert_array_equal(want, got)
 
@@ -224,7 +226,7 @@ def test_align_batch_matches(which, ref_and_index, repetitive_ref):
     want = jalign.align_batch(seqs, ref, sidx, CONFIG, backend='jax')
     got = talign.align_batch(seqs, ref,
                              talign.device_index(ref, sidx, CPU,
-                                                 CONFIG.align), CONFIG)
+                                                 TCONFIG.align), TCONFIG)
     assert len(got) == len(want) >= len(seqs)
     for f in ('read_idx', 'chrom_idx', 'rstart', 'rend', 'strand_rev',
               'qstart_o', 'qend_o', 'qlen', 'score', 'mapq', 'is_primary',
@@ -242,7 +244,7 @@ def test_align_batch_regions_bias(ref_and_index, tmp_path):
                               regions_path=str(regions), backend='jax')
     got = talign.align_batch(seqs, ref,
                              talign.device_index(ref, sidx, CPU),
-                             CONFIG, regions_path=str(regions))
+                             TCONFIG, regions_path=str(regions))
     assert want.overlaps_region.any()
     for f in ('read_idx', 'rstart', 'score', 'mapq', 'is_primary',
               'overlaps_region'):

@@ -3,14 +3,15 @@ fslr_tpu's click CLI builds from the same options, runs the golden
 scenario to the same artifacts as run_pipeline, and refuses what the port
 cannot run before it writes anything."""
 
+import dataclasses
 import gzip
 import os
 
 import pytest
 import torch
 
-from fslr_tpu.config import PipelineConfig
 from fslr_tpu_torch import cli
+from fslr_tpu_torch.config import PipelineConfig
 from fslr_tpu_torch.pipeline import run_pipeline
 from tests.test_golden_snapshot import _build
 
@@ -50,12 +51,28 @@ def test_cli_run_equals_run_pipeline(golden):
         gzip.decompress(_read(b + '.bwa_dodi.bam'))
 
 
-def test_cli_without_skip_clustering_raises(golden, tmp_path):
-    _, ref, fq = golden
-    out = str(tmp_path / 'out')
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        cli.main(_argv(out, ref, fq, '--device', 'cpu'))
-    assert not os.path.exists(out)
+@pytest.mark.parametrize('extra', [[], ['--consensus']],
+                         ids=['default', 'consensus'])
+def test_cli_clustering_run_equals_run_pipeline(golden, extra):
+    """Without --skip-clustering the CLI clusters (and with --consensus
+    builds consensus) as run_pipeline does."""
+    root, ref, fq = golden
+    tag = '_'.join(['c'] + [x.strip('-') for x in extra])
+    out_cli = os.path.join(root, tag)
+    cli.main(_argv(out_cli, ref, fq, '--device', 'cpu', *extra))
+    config = cli.config_from_args(cli._parser().parse_args(
+        _argv(os.path.join(root, tag + '_lib'), ref, fq, *extra)))
+    run_pipeline(config, torch.device('cpu'))
+    a, b = os.path.join(out_cli, 'G'), os.path.join(config.out, 'G')
+    suffixes = ['.mappings.cluster.bed', '.mappings.representative.bed']
+    if extra:
+        suffixes.append('.mappings_merged.bed')
+        assert _read(os.path.join(out_cli, 'cluster',
+                                  'G.cluster.consensus.fa')) == \
+            _read(os.path.join(config.out, 'cluster',
+                               'G.cluster.consensus.fa'))
+    for suffix in suffixes:
+        assert _read(a + suffix) == _read(b + suffix), suffix
 
 
 def test_cli_cuda_without_a_card_raises(golden, tmp_path):
@@ -96,4 +113,5 @@ def test_config_equals_fslr_tpu_cli(golden, monkeypatch, extra):
                         lambda config, mesh=None: seen.update(c=config))
     res = CliRunner().invoke(pipeline, argv + ['--mesh-devices', '1'])
     assert res.exit_code == 0, res.output
-    assert cli.config_from_args(cli._parser().parse_args(argv)) == seen['c']
+    got = cli.config_from_args(cli._parser().parse_args(argv))
+    assert dataclasses.asdict(got) == dataclasses.asdict(seen['c'])

@@ -16,9 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from fslr_tpu.config import JunkFilterConfig, PipelineConfig, ScoringConfig
 from fslr_tpu_torch import kernels
-from fslr_tpu_torch.ops import banded, ssw, tantan, traceback
+from fslr_tpu_torch.config import (JunkFilterConfig, PipelineConfig,
+                                   ScoringConfig)
+from fslr_tpu_torch.ops import (banded, poa, profile_align, ssw, tantan,
+                                traceback)
+from fslr_tpu_torch.tools.synth import make_dataset
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +159,61 @@ def test_mask_kernel_matches_plain(card):
     assert int(((got >= thr) != (want >= thr)).sum()) == 0
 
 
+def _prof_inputs(N, Lq, seed=6):
+    """Reads against POA profiles with fractional scores (substitution
+    and insertion updates through _ProfileGraph), row 0 all pad."""
+    rng = np.random.default_rng(seed)
+    q = np.full((N, Lq), 4, np.uint8)
+    sp = np.empty((N, Lq + 256), np.int32)
+    g = np.empty((N, Lq + 256), np.float32)
+    qlens = np.zeros(N, np.int32)
+    for r in range(N):
+        L = Lq - int(rng.integers(1, 100))
+        backbone = rng.integers(0, 4, L).astype(np.uint8)
+        gph = poa._ProfileGraph(backbone)
+        for _ in range(3):
+            read = backbone.copy()
+            sub = rng.random(L) < 0.08
+            read[sub] = rng.integers(0, 4, int(sub.sum()))
+            gph.update(read, 0, 0, [(L, 'M')])
+        gph.update(np.concatenate([backbone[:L // 2], backbone[:4],
+                                   backbone[L // 2:]]), 0, 0,
+                   [(L // 2, 'M'), (4, 'I'), (L - L // 2, 'M')])
+        sp[r], g[r] = gph.planes(Lq, 2.0, -3.0, 2.0)
+        if r:
+            n = L - int(rng.integers(0, 30))
+            read = backbone[:n].copy()
+            read[rng.random(n) < 0.05] = 3
+            q[r, :n] = read
+            qlens[r] = n
+    return q, sp, g, qlens
+
+
+def test_prof_kernel_matches_plain(card):
+    args = _on(card, *_prof_inputs(24, 512))
+    kw = profile_align._scores(ScoringConfig(gap_open_is_first_base=False))
+    before = kernels.PROF.launches
+    got = profile_align._prof_cuda(*args, **kw)
+    want = profile_align._prof_torch(*args, **kw)
+    assert kernels.PROF.launches == before + 1
+    _assert_equal(got[:3], want[:3])
+    assert float(got[0][0]) == 0.0 and bool((got[0][1:] > 0).all())
+    _assert_bits_equal(got[3], want[3], args[3])
+
+
+def test_profile_align_walk_card_equals_cpu(card):
+    arrays = _prof_inputs(12, 384, seed=8)
+    sc = ScoringConfig(gap_open_is_first_base=False)
+    before = kernels.WALK.launches
+    got = profile_align.profile_align_walk(*_on(card, *arrays), sc)
+    want = profile_align.profile_align_walk(
+        *_on(torch.device('cpu'), *arrays), sc)
+    assert kernels.WALK.launches == before + 1
+    for a, b in zip(got[:5], want[:5]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert got[5] == want[5]
+
+
 def test_kernel_wrapper_rejects_bad_arguments(card):
     q, t, qlens, tlens = _on(card, np.zeros((4, 128), np.uint8),
                              np.zeros((4, 64), np.uint8),
@@ -164,23 +222,30 @@ def test_kernel_wrapper_rejects_bad_arguments(card):
         ssw._sw_cuda(q, t, qlens, tlens, **ssw._scores(ScoringConfig()))
 
 
-@pytest.mark.parametrize('exact', [False, True])
-def test_slice_card_equals_cpu(card, tmp_path, exact):
-    from __graft_entry__ import write_tiny_dataset
+@pytest.mark.parametrize('exact,consensus', [(False, False), (True, False),
+                                             (True, True)])
+def test_slice_card_equals_cpu(card, tmp_path, exact, consensus):
     from fslr_tpu_torch.pipeline import run_pipeline
-    ref, fq = write_tiny_dataset(str(tmp_path))
+    ref, fq = make_dataset(str(tmp_path), 30, 3)
     bases = []
     for dev in (card, torch.device('cpu')):
         out = str(tmp_path / dev.type)
         run_pipeline(PipelineConfig(name='D', out=out, ref=ref,
                                     primers=('21q1', '17p6'), basecalled=fq,
-                                    skip_clustering=True, exact_cigars=exact),
-                     dev)
+                                    skip_clustering=not consensus,
+                                    run_consensus=consensus,
+                                    exact_cigars=exact), dev)
         bases.append(os.path.join(out, 'D'))
-    for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):
+    suffixes = ['.mappings.bed', '.filter_counts_summary.csv']
+    if consensus:
+        suffixes += ['.mappings.cluster.bed', '.mappings.representative.bed',
+                     '.mappings_merged.bed']
+    for suffix in suffixes:
         with open(bases[0] + suffix, 'rb') as a, \
                 open(bases[1] + suffix, 'rb') as b:
             assert a.read() == b.read(), suffix
-    with open(bases[0] + '.bwa_dodi.bam', 'rb') as a, \
-            open(bases[1] + '.bwa_dodi.bam', 'rb') as b:
-        assert gzip.decompress(a.read()) == gzip.decompress(b.read())
+    for bam in ['.bwa_dodi.bam'] + (['.bwa_dodi_merged.bam'] if consensus
+                                    else []):
+        with open(bases[0] + bam, 'rb') as a, \
+                open(bases[1] + bam, 'rb') as b:
+            assert gzip.decompress(a.read()) == gzip.decompress(b.read())

@@ -1,8 +1,11 @@
 """The port's slice end to end on the CPU: the golden scenario of
 tests/test_golden_snapshot.py through fslr_tpu_torch.pipeline, held to the
 golden mappings.bed and byte for byte to fslr_tpu's run of the same
-config (skip_clustering=True), with exact CIGARs (the default: traceback
-emit, z-drop split, columnar BAM) and with exact_cigars=False."""
+settings (each package builds its own PipelineConfig from the same
+keywords, skip_clustering=True), with exact CIGARs (the default:
+traceback emit, z-drop split, columnar BAM) and with exact_cigars=False.
+tests/test_torch_pipeline_cluster.py holds the runs with clustering and
+consensus."""
 
 import gzip
 import os
@@ -11,8 +14,9 @@ import pandas as pd
 import pytest
 import torch
 
-from fslr_tpu.config import PipelineConfig
+from fslr_tpu.config import PipelineConfig as JaxPipelineConfig
 from fslr_tpu.pipeline import run_pipeline as jax_run_pipeline
+from fslr_tpu_torch.config import BatchConfig, PipelineConfig
 from fslr_tpu_torch.pipeline import run_pipeline
 from tests.test_golden_snapshot import GOLDEN, _build
 
@@ -21,11 +25,13 @@ ARTIFACTS = ('.mappings.bed', '.filter_counts_summary.csv',
              '.without_primers.fq', '.bwa_dodi.bam.bai')
 
 
-def _config(root, ref, fq, tag, exact_cigars=False, **kw):
-    return PipelineConfig(name='G', out=os.path.join(root, tag), ref=ref,
-                          primers=('21q1', '17p6'), basecalled=fq,
-                          skip_clustering=True, exact_cigars=exact_cigars,
-                          **kw)
+def _config(root, ref, fq, tag, exact_cigars=False, skip_clustering=True,
+            **kw):
+    cls = JaxPipelineConfig if tag.startswith('jax') else PipelineConfig
+    return cls(name='G', out=os.path.join(root, tag), ref=ref,
+               primers=('21q1', '17p6'), basecalled=fq,
+               skip_clustering=skip_clustering, exact_cigars=exact_cigars,
+               **kw)
 
 
 def _read(path, mode='rb'):
@@ -49,7 +55,8 @@ def golden_runs(tmp_path_factory):
     for tag, kw in (('jax', {}), ('torch', {}),
                     ('jax_regions', dict(regions=regions)),
                     ('torch_regions', dict(regions=regions)),
-                    ('torch_chunked', dict(batch=_chunked_batch())),
+                    ('torch_chunked',
+                     dict(batch=BatchConfig(align_stream_reads=3))),
                     ('jax_exact', dict(exact_cigars=True)),
                     ('torch_exact', dict(exact_cigars=True)),
                     ('jax_exact_regions', dict(exact_cigars=True,
@@ -63,11 +70,6 @@ def golden_runs(tmp_path_factory):
             run_pipeline(config, CPU)
         bases[tag] = os.path.join(config.out, 'G')
     return bases
-
-
-def _chunked_batch():
-    from fslr_tpu.config import BatchConfig
-    return BatchConfig(align_stream_reads=3)
 
 
 def test_golden_mappings_bed(golden_runs):
@@ -145,11 +147,9 @@ def test_timings_written(golden_runs):
 
 
 @pytest.mark.parametrize('kw', [
-    dict(reference_mask='mask.bed'), dict(skip_clustering=False),
-    dict(skip_alignment=True), dict(n_processes=2),
-    dict(run_consensus=True)],
-    ids=['reference_mask', 'clustering', 'skip_alignment', 'n_processes',
-         'consensus'])
+    dict(reference_mask='mask.bed'), dict(skip_alignment=True),
+    dict(n_processes=2)],
+    ids=['reference_mask', 'skip_alignment', 'n_processes'])
 def test_settings_outside_the_slice_raise(tmp_path, kw):
     config = PipelineConfig(name='X', out=str(tmp_path / 'out'),
                             skip_clustering=True, exact_cigars=False)
@@ -163,3 +163,4 @@ def test_device_must_be_explicit(tmp_path):
                             skip_clustering=True, exact_cigars=False)
     with pytest.raises(TypeError):
         run_pipeline(config, 'cpu')
+

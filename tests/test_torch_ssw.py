@@ -12,6 +12,7 @@ import torch
 from fslr_tpu.config import ScoringConfig
 from fslr_tpu.ops import ssw as jssw
 from fslr_tpu_torch.ops import ssw as tssw
+from tests.test_torch_env import port_config
 from tests.oracles import mutate, random_seq
 
 SCORINGS = [ScoringConfig(), ScoringConfig(gap_open_is_first_base=False)]
@@ -65,7 +66,7 @@ def _equal(jax_out, torch_out):
 def test_sw_max_matches_jax(sc, seed):
     q, t, qlens, tlens = _pairs(seed)
     _equal(jssw.sw_max(q, t, qlens, tlens, sc, backend='jax'),
-           tssw.sw_max(*_torch(q, t, qlens, tlens), sc))
+           tssw.sw_max(*_torch(q, t, qlens, tlens), port_config(sc)))
 
 
 def test_sw_max_matches_pallas_interpret():
@@ -87,7 +88,7 @@ def test_sw_max_narrow_queries():
 def test_sw_locate_matches_jax(sc):
     q, t, qlens, tlens = _pairs(4)
     want = jssw.sw_locate(q, t, qlens, tlens, sc, backend='jax')
-    got = tssw.sw_locate(*_torch(q, t, qlens, tlens), sc)
+    got = tssw.sw_locate(*_torch(q, t, qlens, tlens), port_config(sc))
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_array_equal(np.asarray(want[k]), got[k].numpy(),
@@ -126,7 +127,7 @@ def _packed_batch(seed, stride, n=12, T=700):
 def test_sw_max_packed_matches_jax(sc, stride):
     q, t, tlens = _packed_batch(5, stride)
     _equal(jssw.sw_max_packed(q, t, tlens, sc, stride, backend='jax'),
-           tssw.sw_max_packed(*_torch(q, t, tlens), sc, stride))
+           tssw.sw_max_packed(*_torch(q, t, tlens), port_config(sc), stride))
 
 
 def test_sw_max_packed_matches_pallas_interpret():

@@ -14,12 +14,17 @@ from fslr_tpu.io.fastq import read_reads
 from fslr_tpu.panel import load_panel
 from fslr_tpu.stages import filter_junk as jfj
 from fslr_tpu.stages import find_primers as jfp
+from fslr_tpu_torch.io.fastq import read_reads as t_read_reads
+from fslr_tpu_torch.io.fastq import records_to_arrays
+from fslr_tpu_torch.panel import load_panel as t_load_panel
 from fslr_tpu_torch.stages import filter_junk as tfj
 from fslr_tpu_torch.stages import find_primers as tfp
 from tests.oracles import mutate, random_seq
+from tests.test_torch_env import port_config
 
 CPU = torch.device('cpu')
 PANEL = load_panel().subset(['21q1', '17p6'])
+TPANEL = t_load_panel().subset(['21q1', '17p6'])
 
 
 def _fastq(path, reads):
@@ -62,9 +67,10 @@ def filter_case(tmp_path_factory):
 
 def test_filter_junk_records_match(filter_case):
     path, config = filter_case
-    reads = read_reads(path)
-    want = jfj.filter_junk_records(reads, PANEL, config, backend='jax')
-    got = tfj.filter_junk_records(reads, PANEL, config, CPU)
+    want = jfj.filter_junk_records(read_reads(path), PANEL, config,
+                                   backend='jax')
+    got = tfj.filter_junk_records(t_read_reads(path), TPANEL,
+                                  port_config(config), CPU)
     for name, a, b in zip(('keep', 'flat_mask', 'junk', 'short', 'concat'),
                           want[:5], got[:5]):
         np.testing.assert_array_equal(a, b, err_msg=name)
@@ -84,7 +90,8 @@ def test_filter_run_file_outputs_match(filter_case, tmp_path):
         if tag == 'jax':
             c = jfj.run_file(path, PANEL, cfg, backend='jax', out_box=box)
         else:
-            c = tfj.run_file(path, PANEL, cfg, CPU, out_box=box)
+            c = tfj.run_file(path, TPANEL, port_config(cfg), CPU,
+                             out_box=box)
         with open(box['path'], 'rb') as fh:
             kept = fh.read()
         with open(box['path'].replace('.filtered_junk.fq', '.junk.fq'),
@@ -130,7 +137,7 @@ def test_find_primers_run_file_match(tmp_path):
         if tag == 'jax':
             c = jfp.run_file(path, PANEL, config, backend='jax')
         else:
-            c = tfp.run_file(path, PANEL, config, CPU)
+            c = tfp.run_file(path, TPANEL, port_config(config), CPU)
         files = {}
         for suffix in ('.primers_labelled.fq', '.no_primers.fq'):
             with open(str(d / 'reads') + suffix, 'rb') as fh:
@@ -143,8 +150,7 @@ def test_find_primers_run_file_match(tmp_path):
 
 
 def test_label_and_chop_empty_input():
-    from fslr_tpu.io.fastq import records_to_arrays
     records, has_primer, counters = tfp.label_and_chop(
-        records_to_arrays([]), PANEL, PipelineConfig(), CPU)
+        records_to_arrays([]), TPANEL, port_config(PipelineConfig()), CPU)
     assert records == [] and len(has_primer) == 0
     assert counters['starting_bases'] == 0

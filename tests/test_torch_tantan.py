@@ -16,9 +16,11 @@ from fslr_tpu.ops import kmer_stats as jks
 from fslr_tpu.ops import tantan as jtan
 from fslr_tpu_torch.ops import kmer_stats as tks
 from fslr_tpu_torch.ops import tantan as ttan
+from tests.test_torch_env import port_config
 from tests.oracles import random_seq
 
 CFG = JunkFilterConfig()
+TCFG = port_config(CFG)
 
 
 def _planted(seed=7, B=16, L=512):
@@ -58,7 +60,7 @@ def _t(*arrays):
 def test_repeat_mask_planted_batch_zero_mismatches(backend):
     seq, lens = _planted()
     want = np.asarray(jtan.repeat_mask(seq, lens, CFG, backend=backend))
-    got = ttan.repeat_mask(*_t(seq, lens), CFG).numpy()
+    got = ttan.repeat_mask(*_t(seq, lens), TCFG).numpy()
     assert want.sum() > 500
     assert int((want != got).sum()) == 0
 
@@ -70,13 +72,13 @@ def test_repeat_mask_random_reads_and_long_bucket():
              decode(random_seq(rng, 1500)), 'ACGTN' * 10]
     seq, lens = batch_encode(reads, 1536)
     want = np.asarray(jtan.repeat_mask(seq, lens, CFG, backend='jax'))
-    got = ttan.repeat_mask(*_t(seq, lens), CFG).numpy()
+    got = ttan.repeat_mask(*_t(seq, lens), TCFG).numpy()
     np.testing.assert_array_equal(want, got)
 
 
 def test_posterior_is_a_probability():
     seq, _ = _planted(B=6)
-    post = ttan.repeat_posterior(torch.from_numpy(seq), CFG)
+    post = ttan.repeat_posterior(torch.from_numpy(seq), TCFG)
     assert post.shape == (6, 512) and post.dtype == torch.float32
     assert float(post.min()) >= 0.0 and float(post.max()) <= 1.0 + 1e-6
 
@@ -84,7 +86,7 @@ def test_posterior_is_a_probability():
 def test_junk_gates_match_jax():
     seq, lens, mask = _blocks_batch()
     want = np.asarray(jks.junk_gates(seq, lens, mask, CFG))
-    got = tks.junk_gates(*_t(seq, lens, mask), CFG).numpy()
+    got = tks.junk_gates(*_t(seq, lens, mask), TCFG).numpy()
     np.testing.assert_array_equal(want, got)
     assert want.any() and not want.all()
 
@@ -94,7 +96,7 @@ def test_junk_blocks_match_jax():
     jj, (blen, tel, rep, bid, bstart) = jks.junk_blocks_debug(
         seq, lens, mask, CFG)
     tj, (tblen, ttel, trep, tbid, tbstart) = tks.junk_blocks_debug(
-        *_t(seq, lens, mask), CFG)
+        *_t(seq, lens, mask), TCFG)
     np.testing.assert_array_equal(np.asarray(jj), tj.numpy())
     assert np.asarray(jj).tolist() == [False, True, False, True, False]
     live = np.asarray(blen) > 0
@@ -113,10 +115,10 @@ def test_junk_on_planted_masks_match_jax():
     mask = np.asarray(jtan.repeat_mask(seq, lens, CFG, backend='jax'))
     np.testing.assert_array_equal(
         np.asarray(jks.junk_gates(seq, lens, mask, CFG)),
-        tks.junk_gates(*_t(seq, lens, mask), CFG).numpy())
+        tks.junk_gates(*_t(seq, lens, mask), TCFG).numpy())
     np.testing.assert_array_equal(
         np.asarray(jks.junk_blocks(seq, lens, mask, CFG)),
-        tks.junk_blocks(*_t(seq, lens, mask), CFG).numpy())
+        tks.junk_blocks(*_t(seq, lens, mask), TCFG).numpy())
 
 
 def test_telomere_tables_match_jax():

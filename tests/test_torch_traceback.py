@@ -12,6 +12,7 @@ from fslr_tpu.config import ScoringConfig
 from fslr_tpu.ops import banded as jband
 from fslr_tpu.ops import traceback as jtb
 from fslr_tpu_torch.ops import traceback as ttb
+from tests.test_torch_env import port_config
 from tests.oracles import mutate, random_seq
 
 BWA_SC = ScoringConfig(gap_open_is_first_base=False)
@@ -47,7 +48,7 @@ def _tb_rows(seed, N=7, Lq=256):
 def test_tb_matches(backend, sc):
     q, w, qlens = _tb_rows(0)
     want = jtb.banded_sw_tb(q, w, qlens, sc, backend=backend)
-    got = ttb.banded_sw_tb(*_t(q, w, qlens), sc)
+    got = ttb.banded_sw_tb(*_t(q, w, qlens), port_config(sc))
     for name, a, b in zip(('score', 'qend', 'lane', 'bits'), want, got):
         a = np.asarray(a)
         assert a.dtype == b.numpy().dtype, name
@@ -83,7 +84,8 @@ def test_walk_replays_the_score():
     the DP score (tests/test_traceback.py's replay)."""
     from tests.test_traceback import _score_from_path
     q, w, qlens = _tb_rows(2)
-    score, qend, lane, bits = ttb.banded_sw_tb(*_t(q, w, qlens), BWA_SC)
+    score, qend, lane, bits = ttb.banded_sw_tb(*_t(q, w, qlens),
+                                               port_config(BWA_SC))
     packed, emits = ttb.walk(bits, score, qend, lane)
     p = packed.numpy()
     cigars = ttb.decode_emit_rows(emits.numpy())
@@ -122,7 +124,7 @@ def test_banded_extend_matches(sc):
                                        jband.pack_codes_host(genome), sc,
                                        backend='jax')
     got_p, got_e = ttb.banded_extend(*_t(q, qlens, ws, cmin, cmax, genome),
-                                     sc)
+                                     port_config(sc))
     assert got_p.shape == (6, N) and got_e.shape == (N, (SL + 128) // 4)
     np.testing.assert_array_equal(np.asarray(want_p), got_p.numpy())
     assert np.asarray(want_e).tobytes() == got_e.numpy().tobytes()
@@ -153,6 +155,6 @@ def test_cuda_only_shapes_are_checked():
     with pytest.raises(ValueError, match='multiple of 16'):
         ttb._check_rows(*_t(q, w, qlens))
     want = jtb.banded_sw_tb(q, w, qlens, BWA_SC, backend='jax')
-    got = ttb.banded_sw_tb(*_t(q, w, qlens), BWA_SC)
+    got = ttb.banded_sw_tb(*_t(q, w, qlens), port_config(BWA_SC))
     for a, b in zip(want, got):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
