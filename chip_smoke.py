@@ -12,12 +12,14 @@ Phases (each raises on failure; the exit code is then not 0):
 2. build: nvcc compiles fslr_tpu_torch/csrc/*.cu for sm_90a;
 3. kernel checks: every kernel against its plain PyTorch version on the
    card, at the main path's shapes, from seeded inputs -- the DP kernels
-   and the traceback walk must match exactly (tb and profile codes in the
+   (banded and tb in both their thread layouts) and the traceback walk
+   must match exactly (tb and profile codes in the
    words that hold a row's query steps; the kernels zero the rest), the
    repeat mask may differ in at most 1 decision in 10^6 and only where
    the plain posterior lies within 1e-4 of the threshold; both times are
    printed, with each kernel's bound (the least time the card could take
-   for the same work);
+   for the same work), and the device memory one call of the mask,
+   banded and tb kernels allocates (the mask's at most 64 MB);
 4. slice: ``fslr_tpu_torch.cli.main`` (exact CIGARs, the default,
    ``--skip-clustering``) on 10,000 synthetic 2.7 kb fusion amplicons
    against a 2 x 50 Mbp random reference (fslr_tpu_torch.tools.synth);
@@ -45,6 +47,12 @@ Phases (each raises on failure; the exit code is then not 0):
 The line before the last is a JSON object with each kernel's launches on
 the consensus run, error, times and bound; the last line is
 {"ok": true, "device": {...}}.
+
+``sweep_layouts`` (not run by default) times both layouts of the banded
+and tb kernels on every launch of the slice and consensus runs:
+
+    python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
+    chip_smoke.sweep_layouts(torch.device('cuda'))"
 """
 
 import csv
@@ -74,6 +82,7 @@ CROSS_READS = 200
 CROSS_GROUPS = 10
 AS_SAMPLE = 1_000
 CLIPS_ONLY_MAX = 0.02   # share of records with no M/I/D (500 of 44,500 in phase 4)
+MASK_CALL_BYTES = 64 << 20   # mask_kernel's device memory for one call
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     'mask_kernel': ('fslr_tpu_torch/csrc/tantan.cu',
@@ -97,7 +106,10 @@ EARLIER_PATH = SLICE_PATH[:4]
 
 # The least time the card could take: the larger of operations over the
 # float32 CUDA-core peak and bytes (inputs read once, outputs written
-# once) over the HBM rate (NVIDIA H100 SXM data sheet, at 700 W).
+# once) over the HBM rate (NVIDIA H100 SXM data sheet, at 700 W).  The
+# banded and tb kernels run their DP in int32; the data sheet gives no
+# int32 rate, so their operations are held to the float32 peak too (the
+# same bound as the float kernels they replaced; optimistic for int32).
 PEAK_F32 = 67e12
 PEAK_HBM = 3.35e12
 # operations per DP cell (per state and position for the mask, per path
@@ -143,6 +155,18 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _call_bytes(fn) -> int:
+    """Device memory one call allocates beyond what is allocated before
+    it (outputs and scratch), from the allocator's peak."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - base
 
 
 def _mutated_copy(rng, src, sub=0.05, indel=0.02):
@@ -293,12 +317,18 @@ def check_kernels(dev) -> dict:
         w[r, 64:64 + len(c)] = c
     args = [torch.from_numpy(a).to(dev) for a in (q, w, qlens)]
     kw = ssw._scores(sc_bwa)
-    got = banded._banded_cuda(*args, **kw)
     want = banded._banded_torch(*args, **kw)
+    for cpl in banded.LAYOUTS:      # both layouts, whichever the launch picks
+        _exact(f'banded_kernel at {cpl} columns a lane',
+               banded._banded_cuda(*args, cpl=cpl, **kw), want)
+    got = banded._banded_cuda(*args, **kw)
     out['banded_kernel'] = dict(
         max_abs_err=_exact('banded_kernel', got, want),
         ms=_time_ms(lambda: banded._banded_cuda(*args, **kw), 3),
+        layout_ms={c: _time_ms(lambda c=c: banded._banded_cuda(
+            *args, cpl=c, **kw), 3) for c in banded.LAYOUTS},
         plain_ms=_time_ms(lambda: banded._banded_torch(*args, **kw), 1),
+        call_bytes=_call_bytes(lambda: banded._banded_cuda(*args, **kw)),
         **_bound('banded_kernel', *_dp_work(args[2].cpu(), Lq, lambda n: n,
                                             1, 12 * N)))
 
@@ -307,18 +337,29 @@ def check_kernels(dev) -> dict:
     N = 1024
     q[0] = 4
     args = [torch.from_numpy(a[:N]).to(dev) for a in (q, w, qlens)]
-    got = traceback._tb_cuda(*args, **kw)
     want = traceback._tb_torch(*args, **kw)
-    err = _exact('tb_kernel', got[:3], want[:3])
     live = (torch.arange(Lq // 8, device=dev)[None, :]
             < ((args[2].long() + 7) // 8)[:, None])
-    err = max(err, _exact('tb_kernel bits', [got[3][live]], [want[3][live]]))
-    if got[3][~live].any():
-        raise AssertionError('tb_kernel: words past a row end are not 0')
+
+    def check_tb(got, what):
+        err = _exact(what, got[:3], want[:3])
+        err = max(err, _exact(f'{what} bits', [got[3][live]],
+                              [want[3][live]]))
+        if got[3][~live].any():
+            raise AssertionError(f'{what}: words past a row end are not 0')
+        return err
+
+    for cpl in traceback.LAYOUTS:
+        check_tb(traceback._tb_cuda(*args, cpl=cpl, **kw),
+                 f'tb_kernel at {cpl} columns a lane')
+    got = traceback._tb_cuda(*args, **kw)
     out['tb_kernel'] = dict(
-        max_abs_err=err,
+        max_abs_err=check_tb(got, 'tb_kernel'),
         ms=_time_ms(lambda: traceback._tb_cuda(*args, **kw), 3),
+        layout_ms={c: _time_ms(lambda c=c: traceback._tb_cuda(
+            *args, cpl=c, **kw), 3) for c in traceback.LAYOUTS},
         plain_ms=_time_ms(lambda: traceback._tb_torch(*args, **kw), 1),
+        call_bytes=_call_bytes(lambda: traceback._tb_cuda(*args, **kw)),
         **_bound('tb_kernel', *_dp_work(
             args[2].cpu(), Lq, lambda n: ((n + 7) // 8 * 8).clamp(max=Lq),
             1, 12 * N + N * Lq * 64)))
@@ -394,11 +435,15 @@ def check_kernels(dev) -> dict:
     if n_diff and float((want[differ] - thr).abs().max()) > 1e-4:
         raise AssertionError('mask_kernel: a differing decision lies more '
                              'than 1e-4 from the threshold')
+    mem = _call_bytes(lambda: tantan._posterior_cuda(st, cfg))
+    if mem > MASK_CALL_BYTES:
+        raise AssertionError(f'mask_kernel: one call allocates {mem} bytes')
     out['mask_kernel'] = dict(
         max_abs_err=float((got - want).abs().max()),
         decisions_differing=n_diff, masked=int((want >= thr).sum()),
         ms=_time_ms(lambda: tantan._posterior_cuda(st, cfg), 3),
         plain_ms=_time_ms(lambda: tantan._posterior_torch(st, cfg), 1),
+        call_bytes=mem,
         **_bound('mask_kernel', B * L * (cfg.mask_max_period + 1),
                  B * L * 5))
     for name, r in out.items():
@@ -712,6 +757,96 @@ def cross_check(dev, root):
     print(f'cross-check (consensus): {CROSS_READS} reads in {n} clusters, '
           f'card == CPU for {len(files)} artifacts (beds, FASTAs, purity '
           f'CSV, BAM records)')
+
+
+DP_WRAPPERS = {   # the banded DP kernels: module, wrapper, (narrow, wide)
+    'banded_kernel': (banded, '_banded_cuda', banded.LAYOUTS),
+    'tb_kernel': (traceback, '_tb_cuda', traceback.LAYOUTS),
+}
+
+
+def _recorded(store):
+    """Wrap the banded and tb wrappers so that each launch's inputs are
+    copied into ``store`` before it runs; returns a function that undoes
+    the wrapping."""
+    origs = []
+    for name, (mod, attr, _) in DP_WRAPPERS.items():
+        orig = getattr(mod, attr)
+
+        def rec(q, w, qlens, *, _name=name, _orig=orig, **kw):
+            store.append((_name, (q.clone(), w.clone(), qlens.clone()), kw))
+            return _orig(q, w, qlens, **kw)
+        setattr(mod, attr, rec)
+        origs.append((mod, attr, orig))
+
+    def undo():
+        for mod, attr, orig in origs:
+            setattr(mod, attr, orig)
+    return undo
+
+
+def sweep_layouts(dev, reps: int = 3) -> list:
+    """The banded DP kernels' two layouts on the main path's own launches.
+
+    Runs slice-10k (exact CIGARs) and consensus-10k with the inputs of
+    every banded and tb launch recorded, then runs each recorded launch in
+    the kernel's narrow and wide layout, holds the wide result exactly to
+    the narrow one, and times them in turns (narrow, wide, wide, narrow;
+    CUDA events, ``reps`` calls after a warm-up).  Prints one JSON line
+    per launch (rows, query width, qlen quartiles, steps, ms per layout,
+    the wrapper's own pick) and one per run and kernel with the totals."""
+    out = []
+    with tempfile.TemporaryDirectory(prefix='fslr_layouts_') as root:
+        sroot = os.path.join(root, 'slice')
+        croot = os.path.join(root, 'consensus')
+        os.makedirs(sroot)
+        os.makedirs(croot)
+        sdata = make_dataset(sroot, SLICE_READS, 20, ref_mb=SLICE_REF_BP)
+        cdata = make_dataset(croot, CONS_READS, CONS_GROUPS)
+        for run, (rroot, (ref, fq), cons) in (
+                ('slice-10k', (sroot, sdata, False)),
+                ('consensus-10k', (croot, cdata, True))):
+            store = []
+            undo = _recorded(store)
+            try:
+                _run(rroot, ref, fq, run, dev, True, consensus=cons)
+            finally:
+                undo()
+            totals = {}
+            for name, args, kw in store:
+                mod, attr, layouts = DP_WRAPPERS[name]
+                fn = getattr(mod, attr)
+                N, Lq = args[0].shape
+                if not N:
+                    continue
+                _exact(f'{name} at {layouts[1]} columns a lane',
+                       fn(*args, cpl=layouts[1], **kw),
+                       fn(*args, cpl=layouts[0], **kw))
+                ms = {c: [] for c in layouts}
+                for c in layouts + layouts[::-1]:
+                    ms[c].append(_time_ms(
+                        lambda c=c: fn(*args, cpl=c, **kw), reps))
+                ms = {str(c): float(np.mean(v)) for c, v in ms.items()}
+                ql = args[2].float().quantile(
+                    torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0], device=dev))
+                row = dict(run=run, kernel=name, rows=N, width=Lq,
+                           qlen_quartiles=[int(v) for v in ql.tolist()],
+                           steps=int(args[2].clamp(max=Lq).sum()),
+                           pick=banded._layout(N, dev, layouts), ms=ms)
+                out.append(row)
+                print('layouts ' + json.dumps(row))
+                t = totals.setdefault(name, dict.fromkeys(
+                    ('launches', *ms, 'pick', 'best'), 0))
+                t['launches'] += 1
+                for c, v in ms.items():
+                    t[c] += v
+                t['pick'] += ms[str(row['pick'])]
+                t['best'] += min(ms.values())
+            for name, t in totals.items():
+                print('layouts total ' + json.dumps(dict(run=run, kernel=name,
+                                                          **t)))
+            del store
+    return out
 
 
 def main():

@@ -1,5 +1,5 @@
-// Warp-level primitives shared by the 128-column DP kernels (ssw.cu,
-// banded.cu).
+// Warp-level primitives shared by the float 128-column DP kernels
+// (ssw.cu, profile.cu).
 //
 // One warp owns one DP row of 128 columns; lane t holds columns
 // 4t .. 4t+3 in registers.  The two in-row dependencies of the affine

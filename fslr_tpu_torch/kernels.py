@@ -116,8 +116,16 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.fslr_error_string.argtypes = [ctypes.c_int]
             lib.fslr_error_string.restype = ctypes.c_char_p
+            lib.fslr_mask_scratch.argtypes = [ctypes.c_int]
+            lib.fslr_mask_scratch.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def mask_scratch_floats(L: int) -> int:
+    """Floats of checkpoint scratch mask_kernel needs per read of length
+    ``L`` (the kernel's own memory plan, csrc/tantan.cu)."""
+    return library().fslr_mask_scratch(L)
 
 
 class Kernel:
@@ -142,15 +150,15 @@ class Kernel:
 
 
 MASK = Kernel('mask_kernel', 'fslr_mask',
-              (_P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _P, _P, _P))
+              (_P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _P, _P))
 SW_PACKED = Kernel('sw_packed_kernel', 'fslr_sw_packed',
                    (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P))
 SW = Kernel('sw_kernel', 'fslr_sw',
             (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P))
 BANDED = Kernel('banded_kernel', 'fslr_banded',
-                (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P))
+                (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I))
 TB = Kernel('tb_kernel', 'fslr_tb',
-            (_P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P, _P))
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _I))
 WALK = Kernel('walk_kernel', 'fslr_walk', (_P, _P, _P, _P, _I, _I, _P, _P))
 PROF = Kernel('prof_kernel', 'fslr_prof',
               (_P, _P, _P, _P, _I, _I, _F, _F, _F, _P, _P, _P, _P))

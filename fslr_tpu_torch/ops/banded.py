@@ -60,18 +60,53 @@ def _banded_torch(q, w, qlens, *, match, mismatch, fg, ext):
             lane.masked_fill(none, 0.0).to(torch.int32))
 
 
-def _banded_cuda(q, w, qlens, *, match, mismatch, fg, ext):
+def _int_scores(match, mismatch, fg, ext) -> tuple[int, int, int, int]:
+    """The scores as the kernels' int32 DP takes them; raises unless each
+    is an integer (every DP value is then an integer, exact in int32)."""
+    vals = (match, mismatch, fg, ext)
+    if any(float(v) != int(v) for v in vals) or max(
+            abs(match), abs(mismatch)) > 127 or max(abs(fg), abs(ext)) > 4096:
+        raise ValueError(f'scores {vals} are not small integers')
+    return tuple(int(v) for v in vals)
+
+
+LAYOUTS = (8, 16)   # band columns per CUDA lane: narrow, wide
+WIDE_ROWS_PER_SM = 32
+
+
+def _layout(N: int, dev, layouts) -> int:
+    """Band columns per CUDA lane (128 / cols lanes a row, cols / 4 rows a
+    warp) for a launch of N rows: the wide layout (16, the fewest
+    instructions a cell) from WIDE_ROWS_PER_SM rows an SM, where issue
+    decides, else the narrow one (shorter steps, so the longest rows end
+    sooner).  The threshold lies between the widest main-path launch the
+    narrow layout won and the narrowest the wide one won
+    (chip_smoke.sweep_layouts, PERF.md)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return layouts[1] if N >= WIDE_ROWS_PER_SM * sms else layouts[0]
+
+
+def _row_order(qlens):
+    """Rows by descending query length (stable) as int32: the rows sharing
+    a warp end together, and the longest start first."""
+    return torch.argsort(qlens, descending=True, stable=True).to(torch.int32)
+
+
+def _banded_cuda(q, w, qlens, *, match, mismatch, fg, ext, cpl=None):
     N, Lq = q.shape
     dev = q.device
     kernels.check(q, 'q', torch.uint8, (N, Lq), dev)
     kernels.check(w, 'w', torch.uint8, (N, Lq + 2 * BW), dev)
     kernels.check(qlens, 'qlens', torch.int32, (N,), dev)
+    sc = _int_scores(match, mismatch, fg, ext)
+    cpl = cpl or _layout(N, dev, LAYOUTS)
+    order = _row_order(qlens)
     score = torch.empty(N, dtype=torch.float32, device=dev)
     qend = torch.empty(N, dtype=torch.int32, device=dev)
     lane = torch.empty(N, dtype=torch.int32, device=dev)
-    kernels.BANDED.launch(q.data_ptr(), w.data_ptr(), qlens.data_ptr(), N,
-                          Lq, match, mismatch, fg, ext, score.data_ptr(),
-                          qend.data_ptr(), lane.data_ptr())
+    kernels.BANDED.launch(q.data_ptr(), w.data_ptr(), qlens.data_ptr(),
+                          order.data_ptr(), N, Lq, *sc, score.data_ptr(),
+                          qend.data_ptr(), lane.data_ptr(), cpl)
     return score, qend, lane
 
 

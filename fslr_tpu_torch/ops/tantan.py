@@ -9,7 +9,10 @@ P(repeat) >= posterior_threshold, inside the read and not N.
 
 The plain version mirrors the scan reference ``_mask_impl`` (float32,
 normalised per position); the CUDA kernel (``csrc/tantan.cu``) computes
-the same recurrences with sums taken in another order.
+the same recurrences with sums taken in another order and the states
+rescaled every 16 positions instead of normalised at each, as
+``fslr_tpu``'s Pallas kernel does (a common scale cancels in the
+posterior).
 """
 
 from __future__ import annotations
@@ -18,9 +21,6 @@ import torch
 
 from fslr_tpu_torch import kernels
 from fslr_tpu_torch.config import JunkFilterConfig
-
-MAX_PERIOD = 128      # states per kernel block
-
 
 def _start_d(cfg: JunkFilterConfig, device):
     """The b->r_d transition vector, as _mask_impl computes it."""
@@ -99,25 +99,23 @@ def _posterior_torch(seq, cfg: JunkFilterConfig):
 
 
 def _posterior_cuda(seq, cfg: JunkFilterConfig):
-    """Launch mask_kernel: the (B, L) float32 repeat posterior."""
+    """Launch mask_kernel: the (B, L) float32 repeat posterior.  The only
+    scratch is the forward pass's checkpoints, as many floats per read as
+    the kernel asks for; the launch raises for a period above 128 and for
+    a read length that does not fit the block's shared memory."""
     B, L = seq.shape
-    P = cfg.mask_max_period
     dev = seq.device
-    if P > MAX_PERIOD:
-        raise ValueError(f'mask_max_period {P} > {MAX_PERIOD}')
-    if L > 48 * 1024:
-        raise ValueError(f'read length bucket {L} exceeds shared memory')
     kernels.check(seq, 'seq', torch.uint8, (B, L), dev)
     start_d = _start_d(cfg, dev).contiguous()
-    fr_all = torch.empty(B * L * MAX_PERIOD, dtype=torch.float32,
-                         device=dev)
-    fb_all = torch.empty(B * L, dtype=torch.float32, device=dev)
+    ck = torch.empty(B * kernels.mask_scratch_floats(L), dtype=torch.float32,
+                     device=dev)
     post = torch.empty((B, L), dtype=torch.float32, device=dev)
     p = _params(cfg)
-    kernels.MASK.launch(seq.data_ptr(), B, L, P, start_d.data_ptr(),
-                        p['stay_b'], p['stay_r'], p['end_p'],
+    kernels.MASK.launch(seq.data_ptr(), B, L, cfg.mask_max_period,
+                        start_d.data_ptr(), p['stay_b'], p['stay_r'],
+                        p['end_p'],
                         p['match_ratio'], p['mismatch_ratio'],
-                        fr_all.data_ptr(), fb_all.data_ptr(), post.data_ptr())
+                        ck.data_ptr(), post.data_ptr())
     return post
 
 

@@ -27,9 +27,14 @@ import torch
 
 from fslr_tpu_torch import kernels
 from fslr_tpu_torch.config import ScoringConfig
-from fslr_tpu_torch.ops.banded import BW, _genome_windows
+from fslr_tpu_torch.ops.banded import (BW, _genome_windows, _int_scores,
+                                       _layout, _row_order)
 from fslr_tpu_torch.ops.ssw import (NEG, _cummax_exclusive, _init_state,
                                     _scores, _shift_left, _shift_right)
+
+# band columns per CUDA lane (ops/banded.py:_layout): a traceback step is
+# longer than a score step, so its narrow layout is narrower
+LAYOUTS = (4, 16)
 
 # op codes emitted by the walk
 OP_M, OP_I, OP_D = 0, 1, 2
@@ -98,17 +103,20 @@ def _check_rows(q, w, qlens):
     kernels.check(qlens, 'qlens', torch.int32, (N,), q.device)
 
 
-def _tb_cuda(q, w, qlens, *, match, mismatch, fg, ext):
+def _tb_cuda(q, w, qlens, *, match, mismatch, fg, ext, cpl=None):
     N, Lq = q.shape
     dev = q.device
     _check_rows(q, w, qlens)
+    sc = _int_scores(match, mismatch, fg, ext)
+    cpl = cpl or _layout(N, dev, LAYOUTS)
+    order = _row_order(qlens)
     score = torch.empty(N, dtype=torch.float32, device=dev)
     qend = torch.empty(N, dtype=torch.int32, device=dev)
     lane = torch.empty(N, dtype=torch.int32, device=dev)
     bits = torch.empty((N, Lq // 8, BW), dtype=torch.int32, device=dev)
-    kernels.TB.launch(q.data_ptr(), w.data_ptr(), qlens.data_ptr(), N, Lq,
-                      match, mismatch, fg, ext, score.data_ptr(),
-                      qend.data_ptr(), lane.data_ptr(), bits.data_ptr())
+    kernels.TB.launch(q.data_ptr(), w.data_ptr(), qlens.data_ptr(),
+                      order.data_ptr(), N, Lq, *sc, score.data_ptr(),
+                      qend.data_ptr(), lane.data_ptr(), bits.data_ptr(), cpl)
     return score, qend, lane, bits
 
 

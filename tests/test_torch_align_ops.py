@@ -273,3 +273,38 @@ def test_sharded_index_is_refused():
     assert sidx.shards
     with pytest.raises(NotImplementedError, match='ROADMAP.md'):
         talign.device_index(ref, sidx, CPU)
+
+
+@pytest.mark.parametrize('scores,ok', [
+    (dict(match=2.0, mismatch=-3.0, fg=7.0, ext=2.0), True),
+    (dict(match=2.5, mismatch=-3.0, fg=7.0, ext=2.0), False),
+    (dict(match=2.0, mismatch=-300.0, fg=7.0, ext=2.0), False)])
+def test_banded_kernel_takes_small_integer_scores(scores, ok):
+    """The kernels' int32 DP (and its score bytes) needs integer scores
+    with |match|, |mismatch| < 128; the wrapper raises before launching."""
+    if ok:
+        assert tband._int_scores(**scores) == (2, -3, 7, 2)
+        return
+    q, w, qlens = _t(*_banded_rows(0, N=2))
+    with pytest.raises(ValueError, match='small integers'):
+        tband._banded_cuda(q, w, qlens, **scores)
+
+
+@pytest.mark.parametrize('N,wide', [(1, False), (4223, False),
+                                    (4224, True), (30000, True)])
+def test_layout_is_wide_from_32_rows_an_sm(monkeypatch, N, wide):
+    """The banded DP's thread layout per launch: 16 columns a lane from 32
+    rows an SM (132 SMs here), else the kernel's narrow layout."""
+    from types import SimpleNamespace
+    from fslr_tpu_torch.ops import traceback as ttb
+    monkeypatch.setattr(torch.cuda, 'get_device_properties',
+                        lambda dev: SimpleNamespace(multi_processor_count=132))
+    assert tband._layout(N, None, tband.LAYOUTS) == (16 if wide else 8)
+    assert tband._layout(N, None, ttb.LAYOUTS) == (16 if wide else 4)
+
+
+def test_row_order_is_descending_and_stable():
+    qlens = torch.tensor([5, 9, 0, 9, 5, 1], dtype=torch.int32)
+    order = tband._row_order(qlens)
+    assert order.dtype == torch.int32
+    assert order.tolist() == [1, 3, 0, 4, 5, 2]

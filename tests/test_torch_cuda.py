@@ -142,6 +142,13 @@ def test_walk_kernel_matches_plain(card):
     _assert_equal(got, want)
 
 
+def _assert_mask_close(got, want, cfg):
+    """Posteriors within 1e-4, and no decision differs."""
+    assert float((got - want).abs().max()) < 1e-4
+    thr = cfg.mask_posterior_threshold
+    assert int(((got >= thr) != (want >= thr)).sum()) == 0
+
+
 def test_mask_kernel_matches_plain(card):
     rng = np.random.default_rng(3)
     B, L = 64, 1024
@@ -152,11 +159,145 @@ def test_mask_kernel_matches_plain(card):
     seq[1::5, 500:520] = 4
     (st,) = _on(card, seq)
     cfg = JunkFilterConfig()
+    before = kernels.MASK.launches
+    got = tantan._posterior_cuda(st, cfg)
+    assert kernels.MASK.launches == before + 1
+    _assert_mask_close(got, tantan._posterior_torch(st, cfg), cfg)
+
+
+def _mask_case(kind, rng):
+    """Edge cases of the checkpointed mask kernel (B, L and content)."""
+    if kind == 'ragged_batch':         # an odd B (one read per block)
+        seq = rng.integers(0, 4, (5, 512))
+        seq[2, 100:400] = np.tile(seq[2, 100:107], 43)[:300]
+    elif kind in ('smallest_bucket', 'largest_bucket'):
+        L = 512 if kind == 'smallest_bucket' else 32768
+        seq = rng.integers(0, 4, (2, L))
+        seq[0, 200:500] = np.tile(seq[0, 200:209], 34)[:300]
+    elif kind == 'ragged_length':      # L not a multiple of the checkpoint
+        seq = rng.integers(0, 4, (3, 1000))
+        seq[1, 900:1000] = np.tile(seq[1, 900:904], 25)
+    elif kind == 'homopolymer_and_n':  # the rescale's range guard
+        seq = np.zeros((3, 3072), np.int64)
+        seq[0, 3000:] = rng.integers(0, 4, 72)
+        seq[1] = 4
+        seq[2] = rng.integers(0, 4, 3072)
+        seq[2, 1000:2500] = 2
+    else:                              # period 1 and period 100 repeats
+        seq = rng.integers(0, 4, (2, 1536))
+        seq[0, 100:600] = 3
+        unit = rng.integers(0, 4, 100)
+        seq[1, 200:1200] = np.tile(unit, 10)
+    return seq.astype(np.uint8)
+
+
+@pytest.mark.parametrize('kind', ['ragged_batch', 'smallest_bucket',
+                                  'largest_bucket', 'ragged_length',
+                                  'homopolymer_and_n', 'periods_1_and_100'])
+def test_mask_kernel_edge_cases(card, kind):
+    seq = _mask_case(kind, np.random.default_rng(11))
+    (st,) = _on(card, seq)
+    cfg = JunkFilterConfig()
     got = tantan._posterior_cuda(st, cfg)
     want = tantan._posterior_torch(st, cfg)
-    assert float((got - want).abs().max()) < 1e-4
-    thr = cfg.mask_posterior_threshold
-    assert int(((got >= thr) != (want >= thr)).sum()) == 0
+    assert torch.isfinite(got).all()
+    _assert_mask_close(got, want, cfg)
+    if kind == 'periods_1_and_100':
+        assert bool((want[0, 200:500] >= 0.5).all())
+        assert bool((want[1, 700:1100] >= 0.5).any())
+
+
+@pytest.mark.parametrize('what', ['length', 'period'])
+def test_mask_wrapper_refuses_a_bucket_beyond_shared_memory(card, what):
+    """The kernel keeps a read and one chunk of forward states in shared
+    memory and 128 period slots a read: a longer bucket or a longer
+    period raises at the launch, and the next launch still runs."""
+    cfg = JunkFilterConfig()
+    if what == 'length':
+        seq = torch.zeros((1, 1 << 18), dtype=torch.uint8, device=card)
+    else:
+        seq = torch.zeros((1, 512), dtype=torch.uint8, device=card)
+        cfg = JunkFilterConfig(mask_max_period=129)
+    with pytest.raises(RuntimeError, match='mask_kernel launch failed'):
+        tantan._posterior_cuda(seq, cfg)
+    st = torch.zeros((2, 512), dtype=torch.uint8, device=card)
+    assert tantan._posterior_cuda(st, JunkFilterConfig()).shape == (2, 512)
+
+
+def test_mask_kernel_device_memory(card):
+    """The only scratch is the checkpoints: one call at the filter's
+    512 x 3072 batch allocates well under 64 MB."""
+    st = torch.randint(0, 4, (512, 3072), dtype=torch.uint8, device=card)
+    cfg = JunkFilterConfig()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    post = tantan._posterior_cuda(st, cfg)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 64 << 20
+    assert post.shape == (512, 3072)
+
+
+def _band_edge_inputs(N, Lq=256, seed=12):
+    """Rows 0..N-1 of a batch that mixes, unsorted: qlen 0, lengths 1..Lq,
+    an all-mismatch row (score 0), mutated planted copies, and the
+    tied-band-columns witness (two equal 40 bp matches on lanes 24
+    apart, ROADMAP section 3)."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (N, Lq)).astype(np.uint8)
+    w = rng.integers(0, 5, (N, Lq + 256)).astype(np.uint8)
+    qlens = rng.integers(1, Lq + 1, N).astype(np.int32)
+    for r in range(N):
+        kind = r % 5
+        if kind == 0:
+            qlens[r] = 0
+        elif kind == 1:                           # every cell mismatches
+            q[r] = 0
+            w[r] = rng.integers(1, 4, Lq + 256)
+        elif kind == 2:
+            off = int(rng.integers(0, 100))
+            seg = q[r, :Lq // 2].copy()
+            seg[rng.random(len(seg)) < 0.05] = 2
+            seg = np.delete(seg, [10, 60])
+            w[r, off:off + len(seg)] = seg
+        elif kind == 3:                           # tied columns
+            x = rng.integers(0, 4, 40).astype(np.uint8)
+            q[r, :40] = x
+            q[r, 100:140] = x
+            w[r, 10:50] = x
+            w[r, 134:174] = x
+            qlens[r] = max(int(qlens[r]), 150)
+    return q, w, qlens
+
+
+@pytest.mark.parametrize('wide', [False, True])
+@pytest.mark.parametrize('N', range(1, 10))
+def test_banded_and_tb_edge_cases(card, N, wide):
+    q, w, qlens = _band_edge_inputs(9)
+    args = _on(card, q[:N], w[:N], qlens[:N])
+    kw = ssw._scores(ScoringConfig(gap_open_is_first_base=False))
+    got = banded._banded_cuda(*args, cpl=banded.LAYOUTS[wide], **kw)
+    _assert_equal(got, banded._banded_torch(*args, **kw))
+    got = traceback._tb_cuda(*args, cpl=traceback.LAYOUTS[wide], **kw)
+    want = traceback._tb_torch(*args, **kw)
+    _assert_equal(got[:3], want[:3])
+    _assert_bits_equal(got[3], want[3], args[2])
+    assert float(want[0][0]) == 0.0
+    if N > 3:
+        assert float(want[0][1]) == 0.0 and float(want[0][3]) >= 80.0
+
+
+@pytest.mark.parametrize('wide', [False, True])
+def test_banded_and_tb_layouts_match_plain(card, wide):
+    """Each layout at a wider launch: many warps, ragged qlens."""
+    args = _on(card, *_tb_inputs(13, N=300, Lq=512))
+    kw = ssw._scores(ScoringConfig())
+    _assert_equal(banded._banded_cuda(*args, cpl=banded.LAYOUTS[wide], **kw),
+                  banded._banded_torch(*args, **kw))
+    got = traceback._tb_cuda(*args, cpl=traceback.LAYOUTS[wide], **kw)
+    want = traceback._tb_torch(*args, **kw)
+    _assert_equal(got[:3], want[:3])
+    _assert_bits_equal(got[3], want[3], args[2])
 
 
 def _prof_inputs(N, Lq, seed=6):

@@ -126,3 +126,15 @@ def test_telomere_tables_match_jax():
                                   tks.telomere_table(6))
     assert jks.telomere_codes(6) == tks.telomere_codes(6)
     assert jks.tel_rotations() == tks.tel_rotations()
+
+
+def test_cpu_reads_take_the_plain_mask_and_launch_nothing():
+    """A CPU tensor runs the plain version: no kernel launch, no library
+    build (the kernel's size checks live in the library)."""
+    from fslr_tpu_torch import kernels
+    seq, _ = _planted(B=6)
+    before = kernels.MASK.launches
+    got = ttan.repeat_posterior(torch.from_numpy(seq), TCFG)
+    assert kernels.MASK.launches == before
+    assert torch.equal(got, ttan._posterior_torch(torch.from_numpy(seq),
+                                                  TCFG))
