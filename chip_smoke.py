@@ -12,9 +12,10 @@ Phases (each raises on failure; the exit code is then not 0):
 2. build: nvcc compiles fslr_tpu_torch/csrc/*.cu for sm_90a;
 3. kernel checks: every kernel against its plain PyTorch version on the
    card, at the main path's shapes, from seeded inputs -- the DP kernels
-   (banded and tb in both their thread layouts) and the traceback walk
-   must match exactly (tb and profile codes in the
-   words that hold a row's query steps; the kernels zero the rest), the
+   (banded and tb in both their thread layouts, the SW kernels also on
+   their edge cases) and the traceback walk must match exactly (tb and
+   profile codes in the words that hold a row's query steps; the kernels
+   zero the rest), the
    repeat mask may differ in at most 1 decision in 10^6 and only where
    the plain posterior lies within 1e-4 of the threshold; both times are
    printed, with each kernel's bound (the least time the card could take
@@ -48,11 +49,20 @@ The line before the last is a JSON object with each kernel's launches on
 the consensus run, error, times and bound; the last line is
 {"ok": true, "device": {...}}.
 
-``sweep_layouts`` (not run by default) times both layouts of the banded
-and tb kernels on every launch of the slice and consensus runs:
+Not run by default: ``sweep_layouts`` times both layouts of the banded
+and tb kernels on every launch of the slice and consensus runs,
 
     python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
     chip_smoke.sweep_layouts(torch.device('cuda'))"
+
+``own_launches`` times every kernel on those runs' own launches and saves
+the SW kernels' inputs, which ``time_sw_launches`` times again with
+whichever package is first on ``sys.path`` (a parent tree's, in turns);
+the inputs go to a git-ignored path inside the checkout:
+
+    python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
+    chip_smoke.own_launches(torch.device('cuda'), '_proof/sw.pt');
+    chip_smoke.time_sw_launches('_proof/sw.pt', torch.device('cuda'))"
 """
 
 import csv
@@ -116,8 +126,12 @@ PEAK_HBM = 3.35e12
 # step for the walk), counted from each kernel's step: the score or its
 # extraction, E, H, the lazy-F prefix max (in-thread max plus the shuffle
 # scan's share), F, the best update, and the traceback code where there
-# is one
-OPS_PER_CELL = {'sw_kernel': 24, 'sw_packed_kernel': 27, 'banded_kernel': 23,
+# is one.  The SW kernels' int32 step: H - fg, E, Hno, x, the
+# in-thread prefix, its max with the lanes before, H, the column best and
+# half a three-way max for the lane best (8.5; the scores come from a
+# shared-memory profile); a cell is a (target step, query column) pair that
+# the row's lengths need.
+OPS_PER_CELL = {'sw_kernel': 8.5, 'sw_packed_kernel': 8.5, 'banded_kernel': 23,
                 'tb_kernel': 34, 'prof_kernel': 33, 'mask_kernel': 28,
                 'walk_kernel': 20}
 
@@ -249,6 +263,101 @@ def _exact(name, got, want) -> float:
     return err
 
 
+def sw_edge_inputs(B, T=300, seed=21):
+    """(q, t, qlens, tlens) for sw_kernel's edge cases, rows unsorted:
+    qlen 0, 1, 68 and 128; tlen 0, -1 and > T; all-mismatch rows and
+    rows scoring 0; a query holding one word twice (columns tie at the
+    maximum) against a target holding it twice (rows tie); code-4 bases
+    in query and target."""
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (B, 128)).astype(np.uint8)
+    t = rng.integers(0, 4, (B, T)).astype(np.uint8)
+    qlens = rng.choice(np.array([0, 1, 68, 128, 67, 30], np.int32), B)
+    tlens = rng.integers(0, T + 1, B).astype(np.int32)
+    for r in range(B):
+        kind = r % 8
+        if kind == 0:
+            tlens[r] = (0, -1, T + 50)[r // 8 % 3]
+        elif kind == 1:                           # every cell mismatches
+            q[r] = 0
+            t[r] = rng.integers(1, 4, T)
+        elif kind == 2:                           # only N: every score 0
+            t[r] = 4
+        elif kind == 3:                           # tied columns and rows
+            x = rng.integers(0, 4, 20).astype(np.uint8)
+            q[r, :20] = x
+            q[r, 40:60] = x
+            qlens[r] = max(int(qlens[r]), 68)
+            t[r, 30:50] = x
+            t[r, 150:170] = x
+        elif kind == 4:                           # code 4 in both
+            q[r, rng.integers(0, 128, 10)] = 4
+            t[r, rng.integers(0, T, 30)] = 4
+            c = q[r, :min(int(qlens[r]), 60)]
+            t[r, 70:70 + len(c)] = c
+        elif kind == 5:                           # a planted mutated copy
+            c = _mutated_copy(rng, q[r, :min(int(qlens[r]), 100)])
+            t[r, 5:5 + len(c)] = c
+    return q, t, qlens, tlens
+
+
+def sw_packed_edge_inputs(B, stride, T=400, seed=22):
+    """(q, t, tlens) for sw_packed_kernel's edge cases at ``stride``:
+    primers of 1 to ``stride`` bases, one holding code 4, planted whole,
+    mutated, twice (rows tie) and adjacent; tlen 0, -1 and > T; targets of
+    only N."""
+    rng = np.random.default_rng(seed + stride)
+    codes = [rng.integers(0, 4, n).astype(np.uint8)
+             for n in (stride, 1, 21, stride // 2)]
+    codes[2][5] = 4
+    rows, _, _ = ssw.pack_queries(
+        codes + [np.where(c < 4, 3 - c, 4)[::-1] for c in codes], stride)
+    q = rows[np.arange(B) % len(rows)]
+    t = rng.integers(0, 5, (B, T)).astype(np.uint8)
+    tlens = rng.integers(0, T + 1, B).astype(np.int32)
+    for r in range(B):
+        c = codes[r % len(codes)]
+        kind = r % 6
+        if kind == 0:
+            tlens[r] = (0, -1, T + 50)[r // 6 % 3]
+        elif kind == 1:
+            t[r, 10:10 + len(c)] = c
+            t[r, 200:200 + len(c)] = c
+        elif kind == 2:
+            c = _mutated_copy(rng, c, sub=0.1)
+            t[r, 50:50 + len(c)] = c
+        elif kind == 3:
+            t[r, 60:60 + len(codes[0])] = codes[0]
+            t[r, 60 + len(codes[0]):60 + len(codes[0]) + 21] = codes[2]
+        elif kind == 4:
+            t[r] = 4
+    return q, t, tlens
+
+
+SW_EDGE_ROWS = (1, 3, 5, 301)
+
+
+def check_sw_edges(dev) -> int:
+    """Both SW kernels on their edge cases, at row counts that are not
+    multiples of a warp's rows, with both scorings: exact.  Returns the
+    number of launches checked."""
+    checked = 0
+    for sc in (ScoringConfig(), ScoringConfig(gap_open_is_first_base=False)):
+        kw = ssw._scores(sc)
+        for B in SW_EDGE_ROWS:
+            args = [torch.from_numpy(a).to(dev) for a in sw_edge_inputs(B)]
+            _exact(f'sw_kernel ({B} rows)', ssw._sw_cuda(*args, **kw),
+                   ssw._sw_torch(*args, **kw))
+            for stride in (32, 64, 128):
+                args = [torch.from_numpy(a).to(dev)
+                        for a in sw_packed_edge_inputs(B, stride)]
+                _exact(f'sw_packed_kernel ({B} rows, stride {stride})',
+                       ssw._sw_packed_cuda(*args, stride=stride, **kw),
+                       ssw._sw_packed_torch(*args, stride=stride, **kw))
+            checked += 4
+    return checked
+
+
 def check_kernels(dev) -> dict:
     """Each kernel vs its plain version on the card; returns per-kernel
     {max_abs_err, ms, plain_ms}."""
@@ -275,13 +384,14 @@ def check_kernels(dev) -> dict:
     kw = ssw._scores(sc_ssw)
     got = ssw._sw_cuda(*args, **kw)
     want = ssw._sw_torch(*args, **kw)
-    steps = int(np.minimum(tlens, T).sum())
+    n = np.minimum(np.maximum(tlens, 0), T).astype(np.int64)
     out['sw_kernel'] = dict(
         max_abs_err=_exact('sw_kernel', got, want),
         ms=_time_ms(lambda: ssw._sw_cuda(*args, **kw), 10),
         plain_ms=_time_ms(lambda: ssw._sw_torch(*args, **kw), 1),
-        **_bound('sw_kernel', steps * ssw.QP,
-                 B * ssw.QP + steps + 8 * B + 12 * B))
+        edge_cases=check_sw_edges(dev),
+        **_bound('sw_kernel', int(n @ np.minimum(qlens, ssw.QP)),
+                 B * ssw.QP + int(n.sum()) + 8 * B + 12 * B))
 
     # sw_packed_kernel: 8192 read windows x 3072 against 4 packed primers
     B, T = 8192, 3072
@@ -298,14 +408,15 @@ def check_kernels(dev) -> dict:
     args = [torch.from_numpy(a).to(dev) for a in (q, t, tlens)]
     got = ssw._sw_packed_cuda(*args, stride=32, **kw)
     want = ssw._sw_packed_torch(*args, stride=32, **kw)
-    steps = int(np.minimum(tlens, T).sum())
+    n = np.minimum(np.maximum(tlens, 0), T).astype(np.int64)
+    kept = (q < 4).sum(1)        # the primers' columns, not the code-4 pad
     out['sw_packed_kernel'] = dict(
         max_abs_err=_exact('sw_packed_kernel', got, want),
         ms=_time_ms(lambda: ssw._sw_packed_cuda(*args, stride=32, **kw), 3),
         plain_ms=_time_ms(
             lambda: ssw._sw_packed_torch(*args, stride=32, **kw), 1),
-        **_bound('sw_packed_kernel', steps * ssw.QP,
-                 B * ssw.QP + steps + 4 * B + 12 * B))
+        **_bound('sw_packed_kernel', int(n @ kept),
+                 B * ssw.QP + int(n.sum()) + 4 * B + 12 * B))
 
     # banded_kernel: 4096 candidates x 3072-base read slices
     N, Lq = 4096, 3072
@@ -763,26 +874,130 @@ DP_WRAPPERS = {   # the banded DP kernels: module, wrapper, (narrow, wide)
     'banded_kernel': (banded, '_banded_cuda', banded.LAYOUTS),
     'tb_kernel': (traceback, '_tb_cuda', traceback.LAYOUTS),
 }
+WRAPPERS = {   # every kernel: module, its CUDA wrapper
+    'mask_kernel': (tantan, '_posterior_cuda'),
+    'sw_packed_kernel': (ssw, '_sw_packed_cuda'),
+    'sw_kernel': (ssw, '_sw_cuda'),
+    'banded_kernel': (banded, '_banded_cuda'),
+    'tb_kernel': (traceback, '_tb_cuda'),
+    'walk_kernel': (traceback, '_walk_cuda'),
+    'prof_kernel': (profile_align, '_prof_cuda'),
+}
+SW_KERNELS = ('sw_kernel', 'sw_packed_kernel')
 
 
-def _recorded(store):
-    """Wrap the banded and tb wrappers so that each launch's inputs are
-    copied into ``store`` before it runs; returns a function that undoes
-    the wrapping."""
+def _wrapped(names, hook):
+    """Replace the CUDA wrappers of the kernels ``names`` by ones that call
+    ``hook(name, wrapper, args, kw)`` in their place; returns a function
+    that undoes the wrapping."""
     origs = []
-    for name, (mod, attr, _) in DP_WRAPPERS.items():
+    for name in names:
+        mod, attr = WRAPPERS[name]
         orig = getattr(mod, attr)
 
-        def rec(q, w, qlens, *, _name=name, _orig=orig, **kw):
-            store.append((_name, (q.clone(), w.clone(), qlens.clone()), kw))
-            return _orig(q, w, qlens, **kw)
-        setattr(mod, attr, rec)
+        def wrapper(*args, _name=name, _orig=orig, **kw):
+            return hook(_name, _orig, args, kw)
+        setattr(mod, attr, wrapper)
         origs.append((mod, attr, orig))
 
     def undo():
         for mod, attr, orig in origs:
             setattr(mod, attr, orig)
     return undo
+
+
+def _recorded(store, names):
+    """Wrap the kernels ``names`` so that each launch's positional tensors
+    are copied into ``store`` (name, args, keywords) before it runs."""
+    def hook(name, fn, args, kw):
+        store.append((name, tuple(a.clone() for a in args), kw))
+        return fn(*args, **kw)
+    return _wrapped(names, hook)
+
+
+def _quartiles(x) -> list:
+    x = x.float().cpu()
+    return [int(v) for v in x.quantile(
+        torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0])).tolist()] if x.numel() \
+        else []
+
+
+def _own_runs(root):
+    """(run, root, (ref, fastq), consensus) of slice-10k and consensus-10k,
+    their datasets made under ``root``."""
+    runs = []
+    for run, n_reads, n_groups, ref_bp, cons in (
+            ('slice-10k', SLICE_READS, 20, SLICE_REF_BP, False),
+            ('consensus-10k', CONS_READS, CONS_GROUPS, None, True)):
+        rroot = os.path.join(root, run)
+        os.makedirs(rroot)
+        runs.append((run, rroot, make_dataset(rroot, n_reads, n_groups,
+                                              ref_mb=ref_bp), cons))
+    return runs
+
+
+def own_launches(dev, path=None, reps: int = 3) -> dict:
+    """Every kernel on the main path's own launches.
+
+    Runs slice-10k (exact CIGARs) and consensus-10k through the CLI with
+    every kernel's wrapper wrapped: each launch is also timed on its own
+    inputs (CUDA events, ``reps`` calls after a warm-up), and with
+    ``path`` the inputs of every SW launch are saved there (on the host,
+    ``torch.save``) for :func:`time_sw_launches`.  Prints one JSON line per
+    run and kernel (launches, total ms) and returns them."""
+    totals, saved = {}, {}
+
+    def hook(name, fn, args, kw):
+        out = fn(*args, **kw)
+        t = totals.setdefault((run, name), dict(launches=0, ms=0.0))
+        t['launches'] += 1
+        t['ms'] += _time_ms(lambda: fn(*args, **kw), reps)
+        if path and name in SW_KERNELS:
+            saved.setdefault(run, []).append(
+                (name, tuple(a.cpu() for a in args), kw))
+        return out
+
+    with tempfile.TemporaryDirectory(prefix='fslr_own_') as root:
+        for run, rroot, (ref, fq), cons in _own_runs(root):
+            undo = _wrapped(WRAPPERS, hook)
+            try:
+                _run(rroot, ref, fq, run, dev, True, consensus=cons)
+            finally:
+                undo()
+    for (run, name), t in totals.items():
+        print('own launches ' + json.dumps(dict(run=run, kernel=name, **t)))
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        torch.save(saved, path)
+    return totals
+
+
+def time_sw_launches(path, dev, reps: int = 3):
+    """Times the SW kernels on the launches :func:`own_launches` saved at
+    ``path``, with the wrappers of the package first on ``sys.path`` (a
+    parent tree's package times its own kernels on the same inputs).
+    Prints one JSON line per launch (rows, T, target-length quartiles,
+    longest query, ms) and one per run and kernel with the totals; returns
+    the totals."""
+    totals = {}
+    for run, launches in torch.load(path).items():
+        for name, args, kw in launches:
+            mod, attr = WRAPPERS[name]
+            fn = getattr(mod, attr)
+            args = [a.to(dev) for a in args]
+            B, T = args[1].shape
+            row = dict(run=run, kernel=name, rows=B, T=T,
+                       tlen_quartiles=_quartiles(args[-1]),
+                       ms=_time_ms(lambda: fn(*args, **kw), reps))
+            if name == 'sw_kernel':
+                row['qlen_max'] = int(args[2].max()) if B else 0
+            print('sw launch ' + json.dumps(row))
+            t = totals.setdefault((run, name), dict(launches=0, ms=0.0))
+            t['launches'] += 1
+            t['ms'] += row['ms']
+    for (run, name), t in totals.items():
+        print('sw total ' + json.dumps(dict(run=run, kernel=name, **t)))
+    return totals
 
 
 def sweep_layouts(dev, reps: int = 3) -> list:
@@ -797,17 +1012,9 @@ def sweep_layouts(dev, reps: int = 3) -> list:
     the wrapper's own pick) and one per run and kernel with the totals."""
     out = []
     with tempfile.TemporaryDirectory(prefix='fslr_layouts_') as root:
-        sroot = os.path.join(root, 'slice')
-        croot = os.path.join(root, 'consensus')
-        os.makedirs(sroot)
-        os.makedirs(croot)
-        sdata = make_dataset(sroot, SLICE_READS, 20, ref_mb=SLICE_REF_BP)
-        cdata = make_dataset(croot, CONS_READS, CONS_GROUPS)
-        for run, (rroot, (ref, fq), cons) in (
-                ('slice-10k', (sroot, sdata, False)),
-                ('consensus-10k', (croot, cdata, True))):
+        for run, rroot, (ref, fq), cons in _own_runs(root):
             store = []
-            undo = _recorded(store)
+            undo = _recorded(store, DP_WRAPPERS)
             try:
                 _run(rroot, ref, fq, run, dev, True, consensus=cons)
             finally:

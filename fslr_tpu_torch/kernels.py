@@ -152,9 +152,9 @@ class Kernel:
 MASK = Kernel('mask_kernel', 'fslr_mask',
               (_P, _I, _I, _I, _P, _F, _F, _F, _F, _F, _P, _P))
 SW_PACKED = Kernel('sw_packed_kernel', 'fslr_sw_packed',
-                   (_P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P, _P, _P))
+                   (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P))
 SW = Kernel('sw_kernel', 'fslr_sw',
-            (_P, _P, _P, _P, _I, _I, _F, _F, _F, _F, _P, _P, _P))
+            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P))
 BANDED = Kernel('banded_kernel', 'fslr_banded',
                 (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I))
 TB = Kernel('tb_kernel', 'fslr_tb',

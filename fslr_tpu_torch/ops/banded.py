@@ -18,7 +18,7 @@ import torch
 from fslr_tpu_torch import kernels
 from fslr_tpu_torch.config import ScoringConfig
 from fslr_tpu_torch.ops.ssw import (QP, _cummax_exclusive, _init_state,
-                                    _scores, _shift_left)
+                                    _int_scores, _scores, _shift_left)
 
 BW = QP           # band width (lanes)
 
@@ -58,16 +58,6 @@ def _banded_torch(q, w, qlens, *, match, mismatch, fg, ext):
     none = score <= 0.0
     return (score, qend.masked_fill(none, 0.0).to(torch.int32),
             lane.masked_fill(none, 0.0).to(torch.int32))
-
-
-def _int_scores(match, mismatch, fg, ext) -> tuple[int, int, int, int]:
-    """The scores as the kernels' int32 DP takes them; raises unless each
-    is an integer (every DP value is then an integer, exact in int32)."""
-    vals = (match, mismatch, fg, ext)
-    if any(float(v) != int(v) for v in vals) or max(
-            abs(match), abs(mismatch)) > 127 or max(abs(fg), abs(ext)) > 4096:
-        raise ValueError(f'scores {vals} are not small integers')
-    return tuple(int(v) for v in vals)
 
 
 LAYOUTS = (8, 16)   # band columns per CUDA lane: narrow, wide

@@ -6,9 +6,9 @@ DP lanes, target positions i are scanned.  The affine in-row dependency
 
     F[i][j] = cummax_{k<=j-1}(Hno[i][k] + k*e) - fg - (j-1)*e
 
-over Hno, H without F.  Every value is an integer below 2^24 held in
-float32, so the plain version here, the CUDA kernels (``csrc/ssw.cu``) and
-the JAX package agree exactly.
+over Hno, H without F.  Every value is an integer below 2^24, held in
+float32 by the plain version here and the JAX package and in int32 by the
+CUDA kernels (``csrc/ssw.cu``), so all three agree exactly.
 
 Each public function runs the plain PyTorch version for CPU tensors and
 launches the CUDA kernel for CUDA tensors.
@@ -159,11 +159,39 @@ def _sw_packed_torch(q, t, tlens, *, match, mismatch, fg, ext, stride):
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
+def _int_scores(match, mismatch, fg, ext) -> tuple[int, int, int, int]:
+    """The scores as the kernels' int32 DP takes them; raises unless each
+    is an integer (every DP value is then an integer, exact in int32)."""
+    vals = (match, mismatch, fg, ext)
+    if any(float(v) != int(v) for v in vals) or max(
+            abs(match), abs(mismatch)) > 127 or max(abs(fg), abs(ext)) > 4096:
+        raise ValueError(f'scores {vals} are not small integers')
+    return tuple(int(v) for v in vals)
+
+
+def _sw_scores(match, mismatch, fg, ext) -> tuple[int, int, int, int]:
+    """The SW kernels' int32 scores (_int_scores); they also need fg >= 1
+    and ext >= 0, under which a column that is not kept never reaches a
+    positive maximum (csrc/ssw.cu), so their best needs no mask."""
+    sc = _int_scores(match, mismatch, fg, ext)
+    if sc[2] < 1 or sc[3] < 0:
+        raise ValueError(f'scores {sc}: the SW kernels need a first gap '
+                         f'cost >= 1 and an extension cost >= 0')
+    return sc
+
+
 def _check_queries(q, B, dev):
     kernels.check(q, 'q', torch.uint8, (B, QP), dev)
     if q.data_ptr() % 4:
         raise ValueError('q: rows are read as 32-bit words; the data '
                          'pointer must be 4-byte aligned')
+
+
+def _sw_outputs(B, dev):
+    """(score f32, end i32, column i32, the kernel's row-order scratch i32)
+    views of one allocation."""
+    out = torch.empty((4, B), dtype=torch.int32, device=dev)
+    return out[0].view(torch.float32), out[1], out[2], out[3]
 
 
 def _sw_cuda(q, t, qlens, tlens, *, match, mismatch, fg, ext):
@@ -173,11 +201,10 @@ def _sw_cuda(q, t, qlens, tlens, *, match, mismatch, fg, ext):
     kernels.check(t, 't', torch.uint8, (B, T), dev)
     kernels.check(qlens, 'qlens', torch.int32, (B,), dev)
     kernels.check(tlens, 'tlens', torch.int32, (B,), dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    tend = torch.empty(B, dtype=torch.int32, device=dev)
-    qend = torch.empty(B, dtype=torch.int32, device=dev)
+    sc = _sw_scores(match, mismatch, fg, ext)
+    score, tend, qend, order = _sw_outputs(B, dev)
     kernels.SW.launch(q.data_ptr(), t.data_ptr(), qlens.data_ptr(),
-                      tlens.data_ptr(), B, T, match, mismatch, fg, ext,
+                      tlens.data_ptr(), order.data_ptr(), B, T, *sc,
                       score.data_ptr(), tend.data_ptr(), qend.data_ptr())
     return score, tend, qend
 
@@ -188,11 +215,12 @@ def _sw_packed_cuda(q, t, tlens, *, match, mismatch, fg, ext, stride):
     _check_queries(q, B, dev)
     kernels.check(t, 't', torch.uint8, (B, T), dev)
     kernels.check(tlens, 'tlens', torch.int32, (B,), dev)
-    score = torch.empty(B, dtype=torch.float32, device=dev)
-    tend = torch.empty(B, dtype=torch.int32, device=dev)
-    lane = torch.empty(B, dtype=torch.int32, device=dev)
+    sc = _sw_scores(match, mismatch, fg, ext)
+    # the launch refuses a stride that is not a multiple of the kernel's
+    # columns a lane (csrc/ssw.cu)
+    score, tend, lane, order = _sw_outputs(B, dev)
     kernels.SW_PACKED.launch(q.data_ptr(), t.data_ptr(), tlens.data_ptr(),
-                             B, T, stride, match, mismatch, fg, ext,
+                             order.data_ptr(), B, T, stride, *sc,
                              score.data_ptr(), tend.data_ptr(),
                              lane.data_ptr())
     return score, tend, lane

@@ -72,20 +72,27 @@ def _load_indexed(path: str, k: int):
             'ROADMAP.md, port queue item "the masked reference and the '
             'sharded index"')
     cache = f'{path}.fslr_k{k}.npz'
-    if os.path.exists(cache) and \
-            os.path.getmtime(cache) >= os.path.getmtime(path):
-        with np.load(cache) as z:
-            if 'counts' in z:
-                return ref, refmod.SeedIndex(k=k, counts=z['counts'],
-                                             positions=z['positions'])
-        print(f'WARNING: seed-index cache {cache} holds a sharded index; '
-              f'rebuilding from {path}', file=sys.stderr)
+    try:
+        if os.path.exists(cache) and \
+                os.path.getmtime(cache) >= os.path.getmtime(path):
+            with np.load(cache) as z:
+                if 'counts' in z:
+                    return ref, refmod.SeedIndex(k=k, counts=z['counts'],
+                                                 positions=z['positions'])
+            print(f'WARNING: seed-index cache {cache} holds a sharded '
+                  f'index; rebuilding from {path}', file=sys.stderr)
+    except Exception as e:
+        # a truncated write or version skew: say so loudly, then rebuild
+        print(f'WARNING: seed-index cache {cache} unreadable '
+              f'({type(e).__name__}: {e}); rebuilding from {path}',
+              file=sys.stderr)
     sidx = refmod.build_seed_index(ref, k)
     try:
         np.savez(cache, counts=sidx.counts, positions=sidx.positions)
-    except OSError as e:
-        print(f'WARNING: could not write seed-index cache {cache} ({e}); '
-              f'next run will rebuild', file=sys.stderr)
+    except Exception as e:
+        print(f'WARNING: could not write seed-index cache {cache} '
+              f'({type(e).__name__}: {e}); next run will rebuild',
+              file=sys.stderr)
     return ref, sidx
 
 

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from fslr_tpu_torch import kernels
 from fslr_tpu_torch.config import (JunkFilterConfig, PipelineConfig,
                                    ScoringConfig)
@@ -43,15 +44,20 @@ def _assert_equal(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
-@pytest.mark.parametrize('sc', [ScoringConfig(),
-                                ScoringConfig(gap_open_is_first_base=False)])
-def test_sw_kernel_matches_plain(card, sc):
+SCORINGS = [ScoringConfig(), ScoringConfig(gap_open_is_first_base=False)]
+
+
+@pytest.mark.parametrize('qmax', [72, 96, 128])
+@pytest.mark.parametrize('sc', SCORINGS)
+def test_sw_kernel_matches_plain(card, sc, qmax):
+    """Queries up to 72, 96 and 128 bases (a warp runs 72 columns, or 128
+    when one of its queries is longer)."""
     rng = np.random.default_rng(0)
     B, T = 300, 400
     q = rng.integers(0, 5, (B, 128)).astype(np.uint8)
     t = rng.integers(0, 5, (B, T)).astype(np.uint8)
     t[::3, 50:90] = q[::3, :40]
-    qlens = rng.integers(0, 129, B).astype(np.int32)
+    qlens = rng.integers(0, qmax + 1, B).astype(np.int32)
     tlens = rng.integers(0, T + 1, B).astype(np.int32)
     args = _on(card, q, t, qlens, tlens)
     kw = ssw._scores(sc)
@@ -72,8 +78,76 @@ def test_sw_packed_kernel_matches_plain(card, stride):
     tlens = rng.integers(0, T + 1, B).astype(np.int32)
     args = _on(card, q, t, tlens)
     kw = ssw._scores(ScoringConfig())
+    before = kernels.SW_PACKED.launches
     _assert_equal(ssw._sw_packed_cuda(*args, stride=stride, **kw),
                   ssw._sw_packed_torch(*args, stride=stride, **kw))
+    assert kernels.SW_PACKED.launches == before + 1
+
+
+@pytest.mark.parametrize('sc', SCORINGS)
+@pytest.mark.parametrize('B', chip_smoke.SW_EDGE_ROWS)
+def test_sw_kernels_edge_cases(card, B, sc):
+    """Row counts that are not multiples of a warp's rows; qlen 0, 1, 68
+    and 128; tlen 0, -1 and > T mixed in one warp, rows unsorted;
+    all-mismatch and all-N rows; columns and rows tied at the maximum;
+    code 4 in query and target; packed strides 32, 64 and 128 with a
+    1-base primer, a full-stride one and one holding code 4.  Exact."""
+    kw = ssw._scores(sc)
+    args = _on(card, *chip_smoke.sw_edge_inputs(B))
+    want = ssw._sw_torch(*args, **kw)
+    if B > 3:
+        assert float(want[0].max()) > 0 and float(want[0].min()) == 0
+    _assert_equal(ssw._sw_cuda(*args, **kw), want)
+    for stride in (32, 64, 128):
+        args = _on(card, *chip_smoke.sw_packed_edge_inputs(B, stride))
+        want = ssw._sw_packed_torch(*args, stride=stride, **kw)
+        _assert_equal(ssw._sw_packed_cuda(*args, stride=stride, **kw), want)
+
+
+@pytest.mark.parametrize('packed', [False, True])
+def test_sw_kernels_order_rows_by_descending_target_length(card, packed):
+    """The C entry points fill the order scratch with a permutation of the
+    rows by descending target length, clamped to T and to 4,095 (the
+    counting sort's bins), before the DP; more rows than the sort's
+    threads, and lengths past both clamps."""
+    rng = np.random.default_rng(3)
+    B, T = 3000, 5000
+    q = rng.integers(0, 4, (B, 128)).astype(np.uint8)
+    t = rng.integers(0, 4, (B, T)).astype(np.uint8)
+    qlens = rng.integers(0, 129, B).astype(np.int32)
+    tlens = rng.integers(-5, T + 100, B).astype(np.int32)
+    q, t, qlens, tlens = _on(card, q, t, qlens, tlens)
+    sc = ssw._sw_scores(**ssw._scores(ScoringConfig()))
+    score, end, col, order = ssw._sw_outputs(B, card)
+    ptrs = (score.data_ptr(), end.data_ptr(), col.data_ptr())
+    if packed:
+        kernels.SW_PACKED.launch(q.data_ptr(), t.data_ptr(), tlens.data_ptr(),
+                                 order.data_ptr(), B, T, 32, *sc, *ptrs)
+    else:
+        kernels.SW.launch(q.data_ptr(), t.data_ptr(), qlens.data_ptr(),
+                          tlens.data_ptr(), order.data_ptr(), B, T, *sc,
+                          *ptrs)
+    o = order.cpu().long()
+    assert sorted(o.tolist()) == list(range(B))
+    keys = tlens.cpu().long().clamp(0, min(T, 4095))[o]
+    assert bool((keys[:-1] >= keys[1:]).all())
+
+
+def test_sw_wrappers_refuse_fractional_scores_and_strides(card):
+    q, t, qlens, tlens = _on(card, *chip_smoke.sw_edge_inputs(4))
+    kw = dict(match=2.0, mismatch=-2.5, fg=5.0, ext=2.0)
+    with pytest.raises(ValueError, match='not small integers'):
+        ssw._sw_cuda(q, t, qlens, tlens, **kw)
+    with pytest.raises(ValueError, match='not small integers'):
+        ssw._sw_packed_cuda(q, t, tlens, stride=32, **kw)
+    with pytest.raises(ValueError, match='first gap cost'):
+        ssw._sw_cuda(q, t, qlens, tlens, match=2.0, mismatch=-3.0, fg=0.0,
+                     ext=2.0)
+    before = kernels.SW_PACKED.launches
+    with pytest.raises(RuntimeError, match='sw_packed_kernel launch failed'):
+        ssw._sw_packed_cuda(q, t, tlens, stride=24,
+                            **ssw._scores(ScoringConfig()))
+    assert kernels.SW_PACKED.launches == before
 
 
 def test_banded_kernel_matches_plain(card):

@@ -146,3 +146,44 @@ def test_unsupported_device_raises():
     q, t, qlens, tlens = (x.to('meta') for x in _torch(*_pairs(0, B=2)))
     with pytest.raises(ValueError, match='unsupported device'):
         tssw.sw_max(q, t, qlens, tlens, SCORINGS[0])
+
+
+def test_int_scores_take_both_conventions_and_refuse_fractions():
+    for sc, want in zip(SCORINGS, [(2, -3, 5, 2), (2, -3, 7, 2)]):
+        assert tssw._int_scores(**tssw._scores(sc)) == want
+    with pytest.raises(ValueError, match='not small integers'):
+        tssw._int_scores(match=2.5, mismatch=-3.0, fg=5.0, ext=2.0)
+
+
+def test_sw_outputs_are_rows_of_one_allocation():
+    score, end, col, order = tssw._sw_outputs(5, torch.device('cpu'))
+    assert score.dtype == torch.float32 and score.shape == (5,)
+    assert {x.dtype for x in (end, col, order)} == {torch.int32}
+    ptrs = [x.data_ptr() for x in (score, end, col, order)]
+    assert [p - ptrs[0] for p in ptrs] == [0, 20, 40, 60]
+
+
+@pytest.mark.parametrize('fg,ext,ok', [(5, 2, True), (1, 0, True),
+                                        (0, 2, False), (5, -1, False)])
+def test_sw_scores_need_a_positive_first_gap_cost(fg, ext, ok):
+    """The SW kernels' best needs no mask only with fg >= 1, ext >= 0."""
+    kw = dict(match=2.0, mismatch=-3.0, fg=float(fg), ext=float(ext))
+    if ok:
+        assert tssw._sw_scores(**kw) == (2, -3, fg, ext)
+    else:
+        with pytest.raises(ValueError, match='first gap cost'):
+            tssw._sw_scores(**kw)
+
+
+def test_cuda_wrappers_check_scores_and_stride_before_launching():
+    """The wrappers refuse a fractional score before any launch, whatever
+    the packed stride (so the check runs here, on CPU tensors); a stride
+    that is not a multiple of the kernel's columns a lane is refused by
+    the launch itself (tests/test_torch_cuda.py)."""
+    q, t, qlens, tlens = _torch(*_pairs(0, B=4))
+    kw = dict(match=2.0, mismatch=-3.0, fg=5.5, ext=2.0)
+    with pytest.raises(ValueError, match='not small integers'):
+        tssw._sw_cuda(q, t, qlens, tlens, **kw)
+    for stride in (32, 24):
+        with pytest.raises(ValueError, match='not small integers'):
+            tssw._sw_packed_cuda(q, t, tlens, stride=stride, **kw)
