@@ -12,10 +12,10 @@ Phases (each raises on failure; the exit code is then not 0):
 2. build: nvcc compiles fslr_tpu_torch/csrc/*.cu for sm_90a;
 3. kernel checks: every kernel against its plain PyTorch version on the
    card, at the main path's shapes, from seeded inputs -- the DP kernels
-   (banded and tb in both their thread layouts, the SW kernels also on
-   their edge cases) and the traceback walk must match exactly (tb and
-   profile codes in the words that hold a row's query steps; the kernels
-   zero the rest), the
+   (banded and tb in both their thread layouts, the SW kernels and prof
+   also on their edge cases) and the traceback walk (also on its edge
+   cases) must match exactly (tb and profile codes in the words that
+   hold a row's query steps; the kernels zero the rest), the
    repeat mask may differ in at most 1 decision in 10^6 and only where
    the plain posterior lies within 1e-4 of the threshold; both times are
    printed, with each kernel's bound (the least time the card could take
@@ -56,13 +56,15 @@ and tb kernels on every launch of the slice and consensus runs,
     chip_smoke.sweep_layouts(torch.device('cuda'))"
 
 ``own_launches`` times every kernel on those runs' own launches and saves
-the SW kernels' inputs, which ``time_sw_launches`` times again with
-whichever package is first on ``sys.path`` (a parent tree's, in turns);
-the inputs go to a git-ignored path inside the checkout:
+the inputs of the SW, tb and prof launches, on which ``time_launches``
+times the SW, prof and walk kernels again with whichever package is first
+on ``sys.path`` (a parent tree's, in turns; the walk on the codes that
+tree's own tb and prof kernels make); the inputs go to a git-ignored path
+inside the checkout:
 
     python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
-    chip_smoke.own_launches(torch.device('cuda'), '_proof/sw.pt');
-    chip_smoke.time_sw_launches('_proof/sw.pt', torch.device('cuda'))"
+    chip_smoke.own_launches(torch.device('cuda'), '_proof/own.pt');
+    chip_smoke.time_launches('_proof/own.pt', torch.device('cuda'))"
 """
 
 import csv
@@ -263,6 +265,19 @@ def _exact(name, got, want) -> float:
     return err
 
 
+def _check_codes(name, got, want, qlens) -> float:
+    """A traceback DP's (score, qend, lane, bits) against the plain
+    version: exact in the ends and in the code words that hold a row's
+    steps; the kernel's words after them must be 0."""
+    err = _exact(name, got[:3], want[:3])
+    live = (torch.arange(got[3].shape[1], device=got[3].device)[None, :]
+            < ((qlens.long().clamp(min=0) + 7) // 8)[:, None])
+    err = max(err, _exact(f'{name} bits', [got[3][live]], [want[3][live]]))
+    if got[3][~live].any():
+        raise AssertionError(f'{name}: words past a row end are not 0')
+    return err
+
+
 def sw_edge_inputs(B, T=300, seed=21):
     """(q, t, qlens, tlens) for sw_kernel's edge cases, rows unsorted:
     qlen 0, 1, 68 and 128; tlen 0, -1 and > T; all-mismatch rows and
@@ -335,6 +350,125 @@ def sw_packed_edge_inputs(B, stride, T=400, seed=22):
 
 
 SW_EDGE_ROWS = (1, 3, 5, 301)
+PROF_EDGE_ROWS = (1, 3, 5, 33)
+PROF_EDGE_WIDTHS = (128, 3072)
+
+
+def prof_edge_inputs(N, Lq, seed=23):
+    """(q, sp, g, qlens) for prof_kernel's edge cases, by row (r % 6): an
+    all-pad row (qlen 0); a read as long as the row (qlen = Lq); a
+    mutated read with N bases (code 4), qlen not a multiple of 8; a read
+    matching two copies of a segment in its profile (band columns tie at
+    the maximum); a 5-base read; an unrelated read against a profile with
+    unsupported columns.  Profiles come from ``_ProfileGraph`` updates
+    (fractional scores, opened columns)."""
+    rng = np.random.default_rng(seed + Lq)
+    q = np.full((N, Lq), 4, np.uint8)
+    sp = np.empty((N, Lq + 256), np.int32)
+    g = np.empty((N, Lq + 256), np.float32)
+    qlens = np.zeros(N, np.int32)
+    for r in range(N):
+        kind = r % 6
+        L = Lq + int(rng.integers(-20, 40))
+        backbone = rng.integers(0, 4, L).astype(np.uint8)
+        if kind == 3:
+            x = rng.integers(0, 4, 40).astype(np.uint8)
+            backbone[10:50] = x
+            backbone[60:100] = x
+        gph = poa._ProfileGraph(backbone)
+        for _ in range(2):
+            gph.update(_mutated_copy(rng, backbone, sub=0.05, indel=0.0),
+                       0, 0, [(L, 'M')])
+        if kind == 3:                 # the two copies score alike
+            gph.counts[60:100] = gph.counts[10:50]
+            gph.spans[60:100] = gph.spans[10:50]
+        if kind == 5:
+            gph.counts[rng.random(L) < 0.1] = 0
+        sp[r], g[r] = gph.planes(Lq, 2.0, -3.0, 2.0)
+        if kind == 0:
+            continue
+        if kind == 1:
+            read = _mutated_copy(rng, backbone, sub=0.03, indel=0.01)
+            n = Lq
+        elif kind == 3:
+            read = np.concatenate([x, rng.integers(0, 4, Lq).astype(np.uint8)])
+            n = min(Lq, 67)
+        elif kind == 4:
+            read, n = backbone[:5], 5
+        elif kind == 5:
+            read = rng.integers(0, 4, Lq).astype(np.uint8)
+            n = Lq - 13
+        else:
+            read = _mutated_copy(rng, backbone)
+            read[rng.integers(0, len(read), 5)] = 4
+            n = min(len(read), Lq) - 3
+        read = read[:n]
+        q[r, :len(read)] = read
+        qlens[r] = n
+    return q, sp, g, qlens
+
+
+def walk_edge_inputs(N, Lq=256, seed=29):
+    """(bits, score, qend, lane) for walk_kernel's edge cases, from codes
+    drawn at random (mostly diagonal sources, gaps that mostly extend,
+    rare stops), by row (r % 6): a score-0 row (qend 0, lane 0, a stop
+    code); an all-diagonal path from the last step down to i = 0 (a
+    diagonal run far longer than 8, stopping at i = 0); an I run from lane
+    127 that crosses word rows, clamped at lane 127; a D-heavy path from
+    lane 2, clamped at lane 0; two random paths."""
+    rng = np.random.default_rng(seed + N)
+    table = np.array([0] * 1 + [1] * 69 + [2 | 4] * 8 + [2] * 2 + [3 | 8] * 8
+                     + [3] * 2 + [1 | 4 | 8] * 10, np.uint8)
+    codes = table[rng.integers(0, len(table), (N, Lq, 128), dtype=np.uint8)
+                  % len(table)]
+    qend = rng.integers(0, Lq, N).astype(np.int32)
+    lane = rng.integers(0, 128, N).astype(np.int32)
+    score = rng.integers(1, 500, N).astype(np.float32)
+    for r in range(N):
+        kind = r % 6
+        if kind == 0:
+            qend[r], lane[r], score[r] = 0, 0, 0.0
+            codes[r, 0, 0] = 0
+        elif kind == 1:
+            qend[r] = Lq - 1
+            codes[r, :, lane[r]] = 1
+        elif kind == 2:
+            lane[r] = 127
+            codes[r, :, 127] = 2 | 4
+        elif kind == 3:
+            lane[r] = 2
+            codes[r, :, :3] = 3 | 8
+            codes[r, ::7, 0] = 3
+    c = codes.reshape(N, Lq // 8, 8, 128).astype(np.uint32)
+    bits = np.zeros((N, Lq // 8, 128), np.uint32)
+    for k in range(8):
+        bits |= c[:, :, k] << (4 * k)
+    return bits.view(np.int32), score, qend, lane
+
+
+def check_prof_walk_edges(dev) -> int:
+    """prof_kernel on its edge cases at both widths and walk_kernel on its
+    own (1, 5 and 4,097 rows), exact.  Returns the launches checked."""
+    kw = profile_align._scores(ScoringConfig(gap_open_is_first_base=False))
+    checked = 0
+    for Lq in PROF_EDGE_WIDTHS:
+        for N in PROF_EDGE_ROWS:
+            args = [torch.from_numpy(a).to(dev)
+                    for a in prof_edge_inputs(N, Lq)]
+            got = profile_align._prof_cuda(*args, **kw)
+            want = profile_align._prof_torch(*args, **kw)
+            _check_codes(f'prof_kernel ({N} rows, Lq {Lq})', got, want,
+                         args[3])
+            checked += 1
+    for N, Lq in ((1, 256), (5, 256), (4097, 64)):
+        bits, score, qend, lane = [torch.from_numpy(a).to(dev)
+                                   for a in walk_edge_inputs(N, Lq)]
+        _exact(f'walk_kernel ({N} rows)',
+               traceback._walk_cuda(bits, score, qend, lane),
+               traceback._pack_walk(score, qend, lane, *traceback._walk_torch(
+                   bits, qend, lane, Lq + banded.BW)))
+        checked += 1
+    return checked
 
 
 def check_sw_edges(dev) -> int:
@@ -449,16 +583,9 @@ def check_kernels(dev) -> dict:
     q[0] = 4
     args = [torch.from_numpy(a[:N]).to(dev) for a in (q, w, qlens)]
     want = traceback._tb_torch(*args, **kw)
-    live = (torch.arange(Lq // 8, device=dev)[None, :]
-            < ((args[2].long() + 7) // 8)[:, None])
 
     def check_tb(got, what):
-        err = _exact(what, got[:3], want[:3])
-        err = max(err, _exact(f'{what} bits', [got[3][live]],
-                              [want[3][live]]))
-        if got[3][~live].any():
-            raise AssertionError(f'{what}: words past a row end are not 0')
-        return err
+        return _check_codes(what, got, want, args[2])
 
     for cpl in traceback.LAYOUTS:
         check_tb(traceback._tb_cuda(*args, cpl=cpl, **kw),
@@ -498,17 +625,11 @@ def check_kernels(dev) -> dict:
     kw = profile_align._scores(ScoringConfig(gap_open_is_first_base=False))
     got = profile_align._prof_cuda(*args, **kw)
     want = profile_align._prof_torch(*args, **kw)
-    err = _exact('prof_kernel', got[:3], want[:3])
-    live = (torch.arange(Lq // 8, device=dev)[None, :]
-            < ((args[3].long() + 7) // 8)[:, None])
-    err = max(err, _exact('prof_kernel bits', [got[3][live]],
-                          [want[3][live]]))
-    if got[3][~live].any():
-        raise AssertionError('prof_kernel: words past a row end are not 0')
+    err = _check_codes('prof_kernel', got, want, args[3])
     if float(want[0][0]) != 0.0 or not bool((want[0][1:] > 0).all()):
         raise AssertionError('prof_kernel: unexpected row scores')
     out['prof_kernel'] = dict(
-        max_abs_err=err,
+        max_abs_err=err, edge_cases=check_prof_walk_edges(dev),
         ms=_time_ms(lambda: profile_align._prof_cuda(*args, **kw), 3),
         plain_ms=_time_ms(lambda: profile_align._prof_torch(*args, **kw), 1),
         **_bound('prof_kernel', *_dp_work(
@@ -884,6 +1005,9 @@ WRAPPERS = {   # every kernel: module, its CUDA wrapper
     'prof_kernel': (profile_align, '_prof_cuda'),
 }
 SW_KERNELS = ('sw_kernel', 'sw_packed_kernel')
+# kernels whose inputs own_launches saves; the walk runs on the codes that
+# a tree's own tb and prof kernels make from theirs
+SAVED = SW_KERNELS + ('tb_kernel', 'prof_kernel')
 
 
 def _wrapped(names, hook):
@@ -942,9 +1066,10 @@ def own_launches(dev, path=None, reps: int = 3) -> dict:
     Runs slice-10k (exact CIGARs) and consensus-10k through the CLI with
     every kernel's wrapper wrapped: each launch is also timed on its own
     inputs (CUDA events, ``reps`` calls after a warm-up), and with
-    ``path`` the inputs of every SW launch are saved there (on the host,
-    ``torch.save``) for :func:`time_sw_launches`.  Prints one JSON line per
-    run and kernel (launches, total ms) and returns them."""
+    ``path`` the inputs of every launch of the ``SAVED`` kernels are saved
+    there (on the host, ``torch.save``) for :func:`time_launches`.  Prints
+    one JSON line per run and kernel (launches, total ms) and returns
+    them."""
     totals, saved = {}, {}
 
     def hook(name, fn, args, kw):
@@ -952,7 +1077,7 @@ def own_launches(dev, path=None, reps: int = 3) -> dict:
         t = totals.setdefault((run, name), dict(launches=0, ms=0.0))
         t['launches'] += 1
         t['ms'] += _time_ms(lambda: fn(*args, **kw), reps)
-        if path and name in SW_KERNELS:
+        if path and name in SAVED:
             saved.setdefault(run, []).append(
                 (name, tuple(a.cpu() for a in args), kw))
         return out
@@ -972,31 +1097,74 @@ def own_launches(dev, path=None, reps: int = 3) -> dict:
     return totals
 
 
-def time_sw_launches(path, dev, reps: int = 3):
-    """Times the SW kernels on the launches :func:`own_launches` saved at
-    ``path``, with the wrappers of the package first on ``sys.path`` (a
-    parent tree's package times its own kernels on the same inputs).
-    Prints one JSON line per launch (rows, T, target-length quartiles,
-    longest query, ms) and one per run and kernel with the totals; returns
+def launch_shape(name, args) -> dict:
+    """Rows and width of a saved launch: for the SW kernels (q, t, ...,
+    tlens) the rows, the target width T and the target-length quartiles
+    (and the longest query for sw_kernel); for the traceback DPs (q, ...,
+    qlens) the rows, the query width Lq and the qlen quartiles."""
+    if name in SW_KERNELS:
+        B, T = args[1].shape
+        row = dict(rows=B, T=T, tlen_quartiles=_quartiles(args[-1]))
+        if name == 'sw_kernel':
+            row['qlen_max'] = int(args[2].max()) if B else 0
+        return row
+    N, Lq = args[0].shape
+    return dict(rows=N, Lq=Lq, qlen_quartiles=_quartiles(args[-1]))
+
+
+def longest_path(emits) -> int:
+    """Steps of the longest walked path up to its last emitted op, from
+    the 2-bit packed emits (N, T / 4) (3 = none): the walk's serial
+    chain."""
+    if not emits.numel():
+        return 0
+    codes = (emits.long()[:, :, None] >> torch.tensor(
+        [0, 2, 4, 6], device=emits.device)) & 3
+    codes = codes.reshape(emits.shape[0], -1)
+    steps = torch.arange(1, codes.shape[1] + 1, device=emits.device)
+    return int((steps * (codes != 3)).max())
+
+
+def time_launches(path, dev, reps: int = 3):
+    """Times sw_kernel, sw_packed_kernel, prof_kernel and walk_kernel on
+    the launches :func:`own_launches` saved at ``path``, with the wrappers
+    of the package first on ``sys.path`` (a parent tree's package times
+    its own kernels on the same inputs).  The walk runs on the codes that
+    this tree's tb and prof kernels make from their saved inputs (both
+    DPs are exact, so every tree walks the same codes).  Prints one JSON
+    line per launch (its shape as :func:`launch_shape`, the walk's
+    longest path, ms) and one per run and kernel with the totals; returns
     the totals."""
     totals = {}
+
+    def record(row):
+        print('launch ' + json.dumps(row))
+        t = totals.setdefault((row['run'], row['kernel']),
+                              dict(launches=0, ms=0.0))
+        t['launches'] += 1
+        t['ms'] += row['ms']
+
+    walk = getattr(*WRAPPERS['walk_kernel'])
     for run, launches in torch.load(path).items():
         for name, args, kw in launches:
             mod, attr = WRAPPERS[name]
             fn = getattr(mod, attr)
             args = [a.to(dev) for a in args]
-            B, T = args[1].shape
-            row = dict(run=run, kernel=name, rows=B, T=T,
-                       tlen_quartiles=_quartiles(args[-1]),
-                       ms=_time_ms(lambda: fn(*args, **kw), reps))
-            if name == 'sw_kernel':
-                row['qlen_max'] = int(args[2].max()) if B else 0
-            print('sw launch ' + json.dumps(row))
-            t = totals.setdefault((run, name), dict(launches=0, ms=0.0))
-            t['launches'] += 1
-            t['ms'] += row['ms']
+            shape = launch_shape(name, args)
+            if name != 'tb_kernel':
+                record(dict(run=run, kernel=name, **shape,
+                            ms=_time_ms(lambda: fn(*args, **kw), reps)))
+            if name in ('tb_kernel', 'prof_kernel'):
+                score, qend, lane, bits = fn(*args, **kw)
+                _, emits = walk(bits, score, qend, lane)
+                record(dict(run=run, kernel='walk_kernel', codes=name,
+                            rows=shape['rows'], Lq=shape['Lq'],
+                            longest_path=longest_path(emits),
+                            ms=_time_ms(lambda: walk(bits, score, qend,
+                                                     lane), reps)))
+                del score, qend, lane, bits, emits
     for (run, name), t in totals.items():
-        print('sw total ' + json.dumps(dict(run=run, kernel=name, **t)))
+        print('total ' + json.dumps(dict(run=run, kernel=name, **t)))
     return totals
 
 

@@ -192,6 +192,13 @@ def test_components_equal_fslr_tpu(seed):
         tcomp.connected_components(edges, n, CPU), want)
 
 
+def test_components_need_a_device():
+    """The device is the caller's choice: a call without one raises
+    instead of running on the CPU."""
+    with pytest.raises(TypeError):
+        tcomp.connected_components(np.zeros((1, 2), np.int64), 2)
+
+
 def test_jaccard_pairs_match_host():
     """Greedy Jaccard from the uploaded tables equals the host mirror."""
     rng = np.random.default_rng(3)

@@ -416,6 +416,59 @@ def test_prof_kernel_matches_plain(card):
     _assert_bits_equal(got[3], want[3], args[3])
 
 
+@pytest.mark.parametrize('Lq', chip_smoke.PROF_EDGE_WIDTHS)
+@pytest.mark.parametrize('N', chip_smoke.PROF_EDGE_ROWS)
+def test_prof_kernel_edge_cases(card, N, Lq):
+    """1, 3, 5 and 33 rows (one row a warp) at widths 128 and 3,072: qlen
+    0, qlen = Lq, qlen not a multiple of 8, read bases 4, an all-pad row,
+    tied band columns, a 5-base read, unsupported profile columns.
+    Exact in the ends and the live code words; zeros after."""
+    args = _on(card, *chip_smoke.prof_edge_inputs(N, Lq))
+    kw = profile_align._scores(ScoringConfig(gap_open_is_first_base=False))
+    before = kernels.PROF.launches
+    got = profile_align._prof_cuda(*args, **kw)
+    assert kernels.PROF.launches == before + 1
+    want = profile_align._prof_torch(*args, **kw)
+    chip_smoke._check_codes('prof_kernel', got, want, args[3])
+    assert float(want[0][0]) == 0.0
+    if N > 3:
+        assert int(args[3][1]) == Lq and float(want[0][1]) > 0
+
+
+@pytest.mark.parametrize('N,Lq', [(1, 256), (6, 256), (4097, 64)])
+def test_walk_kernel_edge_cases(card, N, Lq):
+    """Score-0 rows, all-diagonal paths down to i = 0 (runs far longer
+    than 8), I runs across word rows clamped at lane 127, D runs clamped
+    at lane 0, random paths; 1 row, and more than 4,096.  Exact."""
+    bits, score, qend, lane = _on(card, *chip_smoke.walk_edge_inputs(N, Lq))
+    before = kernels.WALK.launches
+    got = traceback._walk_cuda(bits, score, qend, lane)
+    assert kernels.WALK.launches == before + 1
+    want = traceback._pack_walk(score, qend, lane, *traceback._walk_torch(
+        bits, qend, lane, Lq + 128))
+    _assert_equal(got, want)
+
+
+@pytest.mark.parametrize('source', ['tb', 'prof'])
+def test_walk_kernel_on_the_kernels_codes(card, source):
+    """The walk on the codes tb_kernel and prof_kernel wrote on the card
+    (their words past a row's end are zeros), against the plain walk of
+    the same codes."""
+    if source == 'tb':
+        args = _on(card, *_tb_inputs(7, N=300, Lq=512))
+        score, qend, lane, bits = traceback._tb_cuda(
+            *args, **ssw._scores(ScoringConfig()))
+    else:
+        args = _on(card, *_prof_inputs(40, 384, seed=9))
+        score, qend, lane, bits = profile_align._prof_cuda(
+            *args, **profile_align._scores(
+                ScoringConfig(gap_open_is_first_base=False)))
+    T = bits.shape[1] * 8 + 128
+    want = traceback._pack_walk(score, qend, lane, *traceback._walk_torch(
+        bits, qend, lane, T))
+    _assert_equal(traceback._walk_cuda(bits, score, qend, lane), want)
+
+
 def test_profile_align_walk_card_equals_cpu(card):
     arrays = _prof_inputs(12, 384, seed=8)
     sc = ScoringConfig(gap_open_is_first_base=False)

@@ -79,6 +79,57 @@ def test_walk_matches_jax_walks():
                                       ops[r][:h_n[r]])
 
 
+def test_walk_edge_codes_match_jax_walks():
+    """The card tests' walk inputs (chip_smoke.walk_edge_inputs: a score-0
+    row, an all-diagonal path down to i = 0, an I run clamped at lane 127,
+    a D-heavy path clamped at lane 0, random paths) walk as the JAX
+    package walks them."""
+    import chip_smoke
+    bits, _, qend, lane = chip_smoke.walk_edge_inputs(6, 64)
+    T = 64 + 128
+    got = ttb._walk_torch(*_t(bits, qend, lane), T)
+    want = jtb._walk_device(bits, qend, lane, T)
+    for name, a, b in zip(('emits', 'n_ops', 'i_fin', 'l_fin'), want, got):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    assert int(got[1][0]) == 0 and int(got[2][1]) == -1
+    assert int(got[3][3]) < 0 and int(got[3][2]) > 127
+
+
+def test_longest_path_counts_steps_to_the_last_emit():
+    """chip_smoke.longest_path reads the walk's serial chain from the
+    2-bit packed emits: the last step that emitted an op, plus one."""
+    import chip_smoke
+    bits, score, qend, lane = _t(*chip_smoke.walk_edge_inputs(6, 64))
+    emits, *_ = ttb._walk_torch(bits, qend, lane, 64 + 128)
+    _, packed = ttb.walk(bits, score, qend, lane)
+    steps = torch.arange(1, emits.shape[1] + 1)
+    want = int((steps * (emits != 255)).max())
+    assert chip_smoke.longest_path(packed) == want > 64
+    assert chip_smoke.longest_path(packed[:1]) == 0
+    assert chip_smoke.longest_path(packed[:0]) == 0
+
+
+def test_launch_shape_of_saved_launches():
+    """The row and width summary time_launches prints for a saved launch:
+    SW kernels by target width and lengths, the traceback DPs by query
+    width and lengths."""
+    import chip_smoke
+    q = torch.zeros((4, 128), dtype=torch.uint8)
+    t = torch.zeros((4, 400), dtype=torch.uint8)
+    qlens = torch.tensor([0, 30, 68, 68], dtype=torch.int32)
+    tlens = torch.tensor([0, 100, 200, 400], dtype=torch.int32)
+    assert chip_smoke.launch_shape('sw_kernel', (q, t, qlens, tlens)) == dict(
+        rows=4, T=400, tlen_quartiles=[0, 75, 150, 250, 400], qlen_max=68)
+    assert chip_smoke.launch_shape('sw_packed_kernel', (q, t, tlens)) == dict(
+        rows=4, T=400, tlen_quartiles=[0, 75, 150, 250, 400])
+    q = torch.zeros((3, 256), dtype=torch.uint8)
+    qlens = torch.tensor([0, 100, 256], dtype=torch.int32)
+    want = dict(rows=3, Lq=256, qlen_quartiles=[0, 50, 100, 178, 256])
+    assert chip_smoke.launch_shape('prof_kernel', (q, None, None, qlens)) \
+        == want
+    assert chip_smoke.launch_shape('tb_kernel', (q, None, qlens)) == want
+
+
 def test_walk_replays_the_score():
     """The walked path, scored against its own query and window, gives
     the DP score (tests/test_traceback.py's replay)."""
