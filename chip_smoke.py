@@ -23,30 +23,58 @@ Phases (each raises on failure; the exit code is then not 0):
    banded and tb kernels allocates (the mask's at most 64 MB);
 4. slice: ``fslr_tpu_torch.cli.main`` (exact CIGARs, the default,
    ``--skip-clustering``) on 10,000 synthetic 2.7 kb fusion amplicons
-   against a 2 x 50 Mbp random reference (fslr_tpu_torch.tools.synth);
-   its six kernels must be launched, the artifacts must exist, the
-   planted chrB segment must be found in >= 99% of the reads, every
-   primary's CIGAR must span its sequence (M + I + S) and a seeded sample
-   of 1,000 records must have an AS tag equal to the score replayed from
-   its CIGAR against the reference.  Then the earlier path, run_pipeline
-   with exact_cigars=False, on the same data (index cache warm): its four
+   against a 2 x 50 Mbp random reference (fslr_tpu_torch.tools.synth),
+   its seed index built on the card (cold); its six kernels must be
+   launched, the artifacts must exist, the planted chrB segment must be
+   found in >= 99% of the reads, every primary's CIGAR must span its
+   sequence (M + I + S) and a seeded sample of 1,000 records must have an
+   AS tag equal to the score replayed from its CIGAR against the
+   reference.  Then the earlier path, run_pipeline with
+   exact_cigars=False, on the same data (index cache warm): its four
    kernels must be launched, the traceback kernels not, and recall must
    hold;
-5. consensus: the CLI's default run (clustering) with ``--consensus`` on
+5. index: the port's device build of that reference must equal this
+   script's numpy build (``numpy_index``), unsharded and in 2 shards, and
+   align_batch on the 10,000 reads must give the same alignments of 50 bp
+   or more (every column and CIGAR) with either index (the short anchors
+   that the random genome shares with the primer targets depend on which
+   of a k-mer's occurrences seeding samples, and a shard holds half of
+   them; fslr_tpu's align_batch does the same, tests/
+   test_torch_align_ops.py::test_shards_move_short_anchors_as_in_fslr_tpu);
+6. consensus: the CLI's default run (clustering) with ``--consensus`` on
    the repo's consensus configuration, 10,000 reads in 500 breakpoint
    groups of 20 on the default 2 x 2 Mbp reference; all seven kernels
    must be launched; every planted group outside the subtelomere mask
    (500 kb from a chromosome end) must be one cluster of its 20 reads,
    the masked groups' reads singletons; each such cluster's consensus
    must equal its members' sequence, and the merged bed and BAM exist;
-6. cross-check: 200 reads on the default 2 x 2 Mbp reference run on the
+7. cross-check: 200 reads on the default 2 x 2 Mbp reference run on the
    card and on the CPU, with exact CIGARs (through the CLI) and without,
-   and 200 reads in 10 groups with clustering and --consensus; every
-   artifact (beds, FASTAs, purity CSV, filter counts) must be byte-equal
-   and the BAMs' records equal.
+   with ``--reference-mask`` over chrA's planted segments, and 200 reads
+   in 10 groups with clustering and --consensus; every artifact (beds,
+   FASTAs, purity CSV, filter counts) must be byte-equal and the BAMs'
+   records equal; the JAX package's masked scenario (two input files,
+   ``--reference-mask`` and ``--regions``) must give byte-equal beds
+   and filter counts, BAM records equal as a multiset in coordinate
+   order, and records selected from the masked reference; align_batch
+   with a 2-shard index must give the same alignments on the card and
+   on the CPU as with the unsharded index;
+8. human-3g: 10,000 reads against a GRCh38-size reference (GRCh38's 24
+   chromosome lengths, 3.09 Gbp of seeded random bases, 4 index shards)
+   with ``--reference-mask``, cold (the card builds the sharded index,
+   its cache is written) and warm (the cache is read): the slice's six
+   kernels must be launched, the planted chrX segment found in >= 99% of
+   the reads, alignments of 50 bp or more only on chr1 and chrX, the
+   AS replays and spans must hold, no temporary reference may be left,
+   and the warm run's artifacts must equal the cold run's.  It prints
+   ``load_index`` split into parse, device build per shard, cache write
+   or read and upload, each shard's device bytes and peak device memory,
+   and times load_reference's bulk FASTA parse against a parse record by
+   record (read_fastx + encode), which must give the same codes.
 
 The line before the last is a JSON object with each kernel's launches on
-the consensus run, error, times and bound; the last line is
+the consensus run (``launches``) and on human-3g's cold run
+(``launches_human_3g``), error, times and bound; the last line is
 {"ok": true, "device": {...}}.
 
 Not run by default: ``sweep_layouts`` times both layouts of the banded
@@ -94,6 +122,10 @@ CROSS_READS = 200
 CROSS_GROUPS = 10
 AS_SAMPLE = 1_000
 CLIPS_ONLY_MAX = 0.02   # share of records with no M/I/D (500 of 44,500 in phase 4)
+INDEX_SPLIT_BASES = 60_000_000      # slice-10k's reference in 2 shards
+CROSS_SPLIT_BASES = 3_000_000       # the cross-check's reference in 2 shards
+CROSS_MASK = 'chrA\t900000\t1300000\n'   # over chrA's planted segments
+HUMAN_READS, HUMAN_GROUPS, HUMAN_SHARDS = 10_000, 20, 4
 MASK_CALL_BYTES = 64 << 20   # mask_kernel's device memory for one call
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
@@ -684,16 +716,20 @@ def check_kernels(dev) -> dict:
     return out
 
 
-def _run(root, ref, fq, tag, dev, exact, consensus=False):
+def _run(root, ref, fq, tag, dev, exact, consensus=False, mask=None,
+         regions=None):
     """One run: through the CLI with exact CIGARs (its default; clustering
-    and consensus with ``consensus``, else --skip-clustering), through
+    and consensus with ``consensus``, else --skip-clustering; with
+    ``mask``, --reference-mask; with ``regions``, --regions), through
     run_pipeline without."""
     out = os.path.join(root, f'out_{tag}')
     if exact:
         from fslr_tpu_torch.cli import main
         main(['--name', 'S', '--out', out, '--ref', ref, '--primers',
               '21q1,17p6', '--basecalled', fq, '--device', str(dev)]
-             + (['--consensus'] if consensus else ['--skip-clustering']))
+             + (['--consensus'] if consensus else ['--skip-clustering'])
+             + (['--reference-mask', mask] if mask else [])
+             + (['--regions', regions] if regions else []))
     else:
         from fslr_tpu_torch.pipeline import run_pipeline
         run_pipeline(PipelineConfig(name='S', out=out, ref=ref,
@@ -708,17 +744,16 @@ def _read_bed(path):
         return list(csv.DictReader(fh, delimiter='\t'))
 
 
-def _recall(rows) -> float:
-    """Share of reads whose planted chrB segment is in mappings.bed: read
-    r{i} carries chrB[600_000 + (i % 20) * span ...]."""
-    span = group_span(SLICE_REF_BP, 20)
+def _recall(rows, chrom, span, n_reads) -> float:
+    """Share of the ``n_reads`` reads whose planted segment is in
+    mappings.bed: read r{i} carries chrom[600_000 + (i % 20) * span ...]."""
     found = set()
     for r in rows:
         i = int(r['qname'].split('.')[0][1:])
         bpos = 600_000 + (i % 20) * span
-        if r['chrom'] == 'chrB' and abs(int(r['rstart']) - 1 - bpos) <= 50:
+        if r['chrom'] == chrom and abs(int(r['rstart']) - 1 - bpos) <= 50:
             found.add(i)
-    return len(found) / SLICE_READS
+    return len(found) / n_reads
 
 
 def _replay(cigar, qcodes, rcodes, pos, sc) -> int:
@@ -744,9 +779,12 @@ def _replay(cigar, qcodes, rcodes, pos, sc) -> int:
     return score
 
 
-def check_bam(base, ref_path) -> dict:
+def check_bam(base, ref_path, mask=None) -> dict:
     """Every primary's CIGAR spans its sequence; sampled AS tags equal
-    their CIGAR replays against the reference.
+    their CIGAR replays against the reference, or, for a record from the
+    masked reference of a ``mask`` run, against that reference (a masked
+    contig holds start - 1 Ns, then ref[start:end], so its coordinates
+    lie one base before the reference's).
 
     A record with clips and no M/I/D is fslr_tpu's own behaviour, kept
     for parity (ROADMAP.md section 3; tests/test_torch_align_exact.py
@@ -772,6 +810,12 @@ def check_bam(base, ref_path) -> dict:
     ref = load_reference(ref_path)
     contigs = [ref.codes[ref.offsets[i]:ref.offsets[i + 1]]
                for i in range(len(ref.names))]
+    masked = {}
+    for line in open(mask) if mask else ():
+        chrom, lo, hi = line.split('\t')[:3]
+        ci, lo = ref.names.index(chrom), int(lo)
+        masked[ci] = np.concatenate([np.full(max(lo - 1, 0), 4, np.uint8),
+                                     contigs[ci][lo:int(hi)]])
     sc = PipelineConfig().align.scoring
     core = [k for k, r in enumerate(recs)
             if any(op in 'MID' for _, op in r.cigar)]
@@ -787,6 +831,7 @@ def check_bam(base, ref_path) -> dict:
                              f'records have no M/I/D')
     pick = np.random.default_rng(7).choice(
         core, min(AS_SAMPLE, len(core)), replace=False)
+    from_masked = 0
     for k in pick.tolist():
         r = recs[k]
         p = primary[r.qname]
@@ -795,23 +840,27 @@ def check_bam(base, ref_path) -> dict:
             raise AssertionError(f'{r.qname}: CIGAR read length '
                                  f'{r.infer_read_length()} != {len(seq)}')
         got = _replay(r.cigar, encode(seq), contigs[r.ref_id], r.pos, sc)
+        if got != r.tags['AS'] and r.ref_id in masked:
+            got = _replay(r.cigar, encode(seq), masked[r.ref_id], r.pos, sc)
+            from_masked += got == r.tags['AS']
         if got != r.tags['AS']:
             raise AssertionError(f'{r.qname} at {r.ref_id}:{r.pos}: AS '
                                  f'{r.tags["AS"]} != replayed {got}')
     n_indel = sum(any(op in 'ID' for _, op in r.cigar) for r in recs)
     return dict(records=len(recs), primaries=len(primary),
-                as_replayed=len(pick), no_core_ops=len(recs) - len(core),
-                with_indels=n_indel)
+                as_replayed=len(pick), of_them_masked=from_masked,
+                no_core_ops=len(recs) - len(core), with_indels=n_indel)
 
 
-def _run_measured(root, ref, fq, tag, dev, exact, want, consensus=False):
+def _run_measured(root, ref, fq, tag, dev, exact, want, consensus=False,
+                  mask=None):
     """A run with launch counts set to 0 before it and read after it;
     each kernel of ``want`` must have been launched."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    base = _run(root, ref, fq, tag, dev, exact, consensus)
+    base = _run(root, ref, fq, tag, dev, exact, consensus, mask)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -843,7 +892,8 @@ def run_slice(dev, root):
             if not os.path.exists(base + suffix):
                 raise AssertionError(f'missing artifact {base}{suffix}')
         rows = _read_bed(base + '.mappings.bed')
-        recall = _recall(rows)
+        recall = _recall(rows, 'chrB', group_span(SLICE_REF_BP, 20),
+                         SLICE_READS)
         if recall < 0.99:
             raise AssertionError(f'planted chrB segment found in '
                                  f'{recall:.4f} of reads')
@@ -859,6 +909,108 @@ def run_slice(dev, root):
             bam = check_bam(base, ref)
             print(f'slice BAM: {json.dumps(bam)}, '
                   f'checked in {time.perf_counter() - t0:.2f} s')
+    return ref, fq
+
+
+def numpy_index(codes, offsets, k):
+    """This script's own host build of a seed index, to hold the port's
+    device build to: (counts, positions) of every k-mer without an N and
+    inside one contig, as one numpy sort of (k-mer << 32 | position)."""
+    n = len(codes) - k + 1
+    if n <= 0:
+        return np.zeros(4 ** k + 1, np.int64), np.zeros(0, np.int32)
+    kmers = np.zeros(n, np.int64)
+    valid = np.ones(n, bool)
+    for p in range(k):
+        c = codes[p:p + n]
+        kmers *= 4
+        kmers += np.minimum(c, 3)
+        valid &= c < 4
+    for off in offsets[1:-1].tolist():
+        valid[max(0, off - k + 1):off] = False
+    pos = np.flatnonzero(valid)
+    kmers = kmers[pos]
+    counts = np.zeros(4 ** k + 1, np.int64)
+    np.cumsum(np.bincount(kmers, minlength=4 ** k), out=counts[1:])
+    kmers <<= 32
+    kmers |= pos
+    kmers.sort()
+    return counts, (kmers & 0xffffffff).astype(np.int32)
+
+
+def _shards(ref, sidx):
+    """(reference, index, contig base) of each shard, or of the whole."""
+    return ([(sh.ref, sh.sidx, sh.contig_base) for sh in sidx.shards]
+            if sidx.shards else [(ref, sidx, 0)])
+
+
+def _aligned_rows(aln) -> list:
+    """Every Alignments column and CIGAR of each row, rows sorted: a
+    sharded index gives each shard's alignments in turn."""
+    cols = [getattr(aln, f).tolist() for f in (
+        'read_idx', 'chrom_idx', 'rstart', 'rend', 'strand_rev', 'qstart_o',
+        'qend_o', 'qlen', 'score', 'mapq', 'is_primary', 'overlaps_region')]
+    cig = aln.cigar_lists() or [None] * len(aln)
+    return sorted(zip(*cols, (tuple(c) if c else () for c in cig)))
+
+
+def _align_rows(ref, sidx, dev, codes) -> list:
+    from fslr_tpu_torch.stages import align as align_stage
+    config = PipelineConfig()
+    didx = align_stage.device_index(ref, sidx, dev, config.align)
+    return _aligned_rows(align_stage.align_batch([], ref, didx, config,
+                                                 codes=codes))
+
+
+def check_index(dev, ref_path, fq):
+    """The port's device build of slice-10k's reference (2 x 50 Mbp)
+    equals this script's numpy build, unsharded and in 2 shards, and
+    align_batch on the slice's 10,000 reads gives the same alignments of
+    50 bp or more with either index."""
+    from fslr_tpu_torch.index.reference import (MAX_UNSHARDED_BASES,
+                                                build_seed_index,
+                                                load_reference)
+    from fslr_tpu_torch.io.fastq import read_reads
+    ref = load_reference(ref_path)
+    k = PipelineConfig().align.seed_k
+    built = []
+    for cap, n_shards in ((MAX_UNSHARDED_BASES, 1), (INDEX_SPLIT_BASES, 2)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sidx = build_seed_index(ref, k, dev, cap)
+        t_dev = time.perf_counter() - t0
+        parts = _shards(ref, sidx)
+        if len(parts) != n_shards:
+            raise AssertionError(f'{len(parts)} shards at {cap} bases')
+        t0 = time.perf_counter()
+        for sref, s, base in parts:
+            counts, positions = numpy_index(sref.codes, sref.offsets, k)
+            if not (np.array_equal(counts, s.counts)
+                    and np.array_equal(positions, s.positions)):
+                raise AssertionError(f'device build of the shard from '
+                                     f'contig {base} differs from numpy')
+        print(f'index: device build == numpy build in {n_shards} shard(s) '
+              f'({len(ref.codes)} bases; device {t_dev:.2f} s, numpy '
+              f'{time.perf_counter() - t0:.2f} s)')
+        built.append(sidx)
+    fa = read_reads(os.path.join(fq, 'b0.fastq'))
+    codes = fa.codes_slice(0, fa.n)
+    rows = [_align_rows(ref, sidx, dev, codes) for sidx in built]
+    # seeding samples C = 16 of a k-mer's occurrences; a 50 Mbp shard
+    # holds about half a 100 Mbp genome's, so the short anchors that a
+    # random genome shares with the primer targets may differ, in
+    # fslr_tpu as in the port (tests/test_torch_align_ops.py::
+    # test_shards_move_short_anchors_as_in_fslr_tpu)
+    long_rows = [[r for r in rs if r[3] - r[2] + 1 >= 50] for rs in rows]
+    if long_rows[0] != long_rows[1] or not long_rows[0]:
+        raise AssertionError('align_batch with 2 shards differs from the '
+                             'unsharded index in alignments of >= 50 bp')
+    short = [set(rs) - set(lr) for rs, lr in zip(rows, long_rows)]
+    print(f'index: align_batch of {fa.n} reads, 2 shards == unsharded in '
+          f'all {len(long_rows[0])} alignments of >= 50 bp (every column '
+          f'and CIGAR); shorter: {len(short[0])} unsharded, '
+          f'{len(short[1])} sharded, {len(short[0] ^ short[1])} in one '
+          'only')
 
 
 def _read_fasta(path):
@@ -951,12 +1103,64 @@ def _same(a, b, what):
     if a.endswith('.bam'):
         da, db = gzip.decompress(da), gzip.decompress(db)
     if da != db:
-        raise AssertionError(f'{what}: card and CPU runs differ')
+        raise AssertionError(f'{what}: the two runs differ')
+
+
+def _bam_parts(path):
+    """A BAM's header bytes and its records' bytes, in file order."""
+    with open(path, 'rb') as fh:
+        data = gzip.decompress(fh.read())
+    o = 8 + int.from_bytes(data[4:8], 'little')
+    n_ref = int.from_bytes(data[o:o + 4], 'little')
+    o += 4
+    for _ in range(n_ref):
+        o += 8 + int.from_bytes(data[o:o + 4], 'little')
+    head, recs = data[:o], []
+    while o < len(data):
+        n = 4 + int.from_bytes(data[o:o + 4], 'little')
+        recs.append(data[o:o + n])
+        o += n
+    return head, recs
+
+
+def cross_check_masked_regions(dev, root):
+    """The masked-reference scenario of the JAX package's pipeline tests
+    (tools.synth.make_masked_dataset: two input files, --reference-mask,
+    --regions) on the card and on the CPU.  With regions, each read's
+    alignment to the masked copy (one base before the reference's) is
+    selected besides its reference one.  mappings.bed and the filter
+    counts byte-equal; the BAM's header equal and its records equal as a
+    multiset in the same coordinate order (the two files' filtered copies
+    carry random names, which order records that tie on coordinates);
+    the masked records' AS replayed on the masked layout."""
+    from fslr_tpu_torch.tools.synth import make_masked_dataset
+    root = os.path.join(root, 'masked_regions')
+    os.makedirs(root)
+    ref, fq, mask, regions = make_masked_dataset(root)
+    bases = [_run(root, ref, fq, tag, d, True, mask=mask, regions=regions)
+             for tag, d in (('card', dev), ('cpu', torch.device('cpu')))]
+    for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):
+        _same(bases[0] + suffix, bases[1] + suffix,
+              f'{suffix} (masked, regions)')
+    (head, recs), (head_c, recs_c) = (_bam_parts(b + '.bwa_dodi.bam')
+                                      for b in bases)
+    if head != head_c or sorted(recs) != sorted(recs_c) or \
+            [r[4:12] for r in recs] != [r[4:12] for r in recs_c]:
+        raise AssertionError('BAM (masked, regions): the two runs differ')
+    bam = check_bam(bases[0], ref, mask)
+    if bam['of_them_masked'] == 0:
+        raise AssertionError('masked, regions: no record from the masked '
+                             'reference')
+    print(f'cross-check (--reference-mask and --regions, 2 files): card == '
+          f'CPU for mappings.bed, filter_counts_summary.csv and BAM records '
+          f'(as a multiset, in coordinate order); BAM {json.dumps(bam)}')
 
 
 def cross_check(dev, root):
     """200 reads on the card and on the CPU, with and without exact
-    CIGARs, and with clustering and consensus: artifacts byte-equal."""
+    CIGARs, with --reference-mask, and with clustering and consensus:
+    artifacts byte-equal; the masked scenario with regions
+    (cross_check_masked_regions); a 2-shard align_batch."""
     root = os.path.join(root, 'cross')
     os.makedirs(root)
     ref, fq = make_dataset(root, CROSS_READS)
@@ -972,6 +1176,36 @@ def cross_check(dev, root):
         print(f'cross-check (exact_cigars={exact}): {CROSS_READS} reads, '
               f'card == CPU for mappings.bed ({n_rows} rows), '
               f'filter_counts_summary.csv and BAM records')
+    mask = os.path.join(root, 'mask.bed')
+    with open(mask, 'w') as fh:
+        fh.write(CROSS_MASK)
+    bases = [_run(root, ref, fq, f'{tag}_masked', d, True, mask=mask)
+             for tag, d in (('card', dev), ('cpu', torch.device('cpu')))]
+    for suffix in ('.mappings.bed', '.filter_counts_summary.csv',
+                   '.bwa_dodi.bam'):
+        _same(bases[0] + suffix, bases[1] + suffix, f'{suffix} (masked)')
+    print(f'cross-check (--reference-mask, {CROSS_MASK.strip()!r}): '
+          f'{CROSS_READS} reads, card == CPU for mappings.bed '
+          f'({len(_read_bed(bases[0] + ".mappings.bed"))} rows), '
+          'filter_counts_summary.csv and BAM records')
+    cross_check_masked_regions(dev, root)
+    from fslr_tpu_torch.index.reference import (build_seed_index,
+                                                load_reference)
+    from fslr_tpu_torch.io.fastq import read_reads
+    href = load_reference(ref)
+    fa = read_reads(os.path.join(fq, 'b0.fastq'))
+    rows = [_align_rows(href, build_seed_index(
+        href, PipelineConfig().align.seed_k, d, cap), d,
+        fa.codes_slice(0, fa.n)) for d, cap in (
+            (dev, CROSS_SPLIT_BASES), (torch.device('cpu'), CROSS_SPLIT_BASES),
+            (dev, 2 * CROSS_SPLIT_BASES))]
+    if rows[0] != rows[1]:
+        raise AssertionError('2-shard align_batch: card and CPU differ')
+    if rows[0] != rows[2]:
+        raise AssertionError('2-shard align_batch differs from unsharded')
+    print(f'cross-check (2 shards): align_batch of {fa.n} reads, card == '
+          f'CPU == unsharded ({len(rows[0])} alignments, every column and '
+          'CIGAR)')
     root = os.path.join(root, 'consensus')
     os.makedirs(root)
     ref, fq = make_dataset(root, CROSS_READS, CROSS_GROUPS)
@@ -989,6 +1223,121 @@ def cross_check(dev, root):
     print(f'cross-check (consensus): {CROSS_READS} reads in {n} clusters, '
           f'card == CPU for {len(files)} artifacts (beds, FASTAs, purity '
           f'CSV, BAM records)')
+
+
+def _index_bytes(ref_path, lengths, k) -> list:
+    """Device bytes of each shard's genome codes, int32 counts and
+    positions, from the cache the cold run wrote."""
+    lengths = np.asarray(lengths, np.int64)
+    out = []
+    with np.load(f'{ref_path}.fslr_k{k}.npz') as z:
+        for si, (c0, c1) in enumerate(z['shard_bounds'].tolist()):
+            n_pos = int(z[f'counts_{si}'][-1])
+            out.append(int(lengths[c0:c1].sum()) + 4 * (4 ** k + 1)
+                       + 4 * n_pos)
+    return out
+
+
+def run_human(dev, root) -> dict:
+    """human-3g: 10,000 reads against a GRCh38-size reference (24
+    chromosomes at GRCh38's lengths, 3.09 Gbp, 4 index shards) with
+    --reference-mask, exact CIGARs and --skip-clustering, through the
+    CLI: cold (the device builds the sharded index and writes its cache),
+    then warm (the cache is read back).  Both must launch the slice's
+    kernels, find the planted chrX segment in >= 99% of the reads, map
+    only to chr1 and chrX and leave no temporary reference; the warm run's
+    artifacts must equal the cold run's, the cold BAM's AS tags their
+    replays.  Returns the cold run's launch counts."""
+    from fslr_tpu_torch.tools.synth import (GRCH38,
+                                            make_grch38_layout_dataset)
+    root = os.path.join(root, 'human')
+    os.makedirs(root)
+    for cmd in (['df', '-h', root], ['free', '-g']):
+        print('human: ' + subprocess.run(cmd, capture_output=True,
+                                         text=True).stdout.strip())
+    t0 = time.perf_counter()
+    ref, fq, mask = make_grch38_layout_dataset(root, HUMAN_READS,
+                                               HUMAN_GROUPS)
+    print(f'human: dataset {time.perf_counter() - t0:.2f} s '
+          f'({sum(n for _, n in GRCH38)} bp in {len(GRCH38)} contigs)')
+    span = group_span(dict(GRCH38)['chrX'], HUMAN_GROUPS)
+    k = PipelineConfig().align.seed_k
+    bases, out = [], {}
+    for tag in ('cold', 'warm'):
+        base, wall, launches, peak, stages = _run_measured(
+            root, ref, fq, f'human_{tag}', dev, True, SLICE_PATH, mask=mask)
+        rows = _read_bed(base + '.mappings.bed')
+        recall = _recall(rows, 'chrX', span, HUMAN_READS)
+        if recall < 0.99:
+            raise AssertionError(f'human ({tag}): planted chrX segment '
+                                 f'found in {recall:.4f} of reads')
+        # a random genome shares 11-mers with the reads' primer targets:
+        # short anchors (< 50 bp) may land on any chromosome
+        genomic = [r for r in rows if r['inferred_by_primer'] == '0']
+        chroms = {r['chrom'] for r in genomic if int(r['aln_size']) >= 50}
+        elsewhere = [r for r in genomic if r['chrom'] not in chroms]
+        if chroms != {'chr1', 'chrX'}:
+            raise AssertionError(f'human ({tag}): alignments of 50 bp or '
+                                 f'more on {sorted(chroms)}')
+        left = [n for n in os.listdir(os.path.dirname(base))
+                if '_temp_ref.fa' in n]
+        if left:
+            raise AssertionError(f'human ({tag}): {left} left behind')
+        split = {n: round(v, 3) for n, v in stages.items()
+                 if n.startswith('index_') or 'load' in n}
+        print(f'human ({tag}): {HUMAN_READS} reads, pipeline {wall:.2f} s, '
+              f'{HUMAN_READS / wall:.1f} reads/s, peak device memory '
+              f'{peak / 2**30:.3f} GiB, chrX recall {recall:.4f}, bed rows '
+              f'{len(rows)}, alignments of >= 50 bp on {sorted(chroms)}, '
+              f'{len(elsewhere)} shorter ones elsewhere (longest '
+              f'{max((int(r["aln_size"]) for r in elsewhere), default=0)} '
+              'bp)')
+        print(f'human ({tag}) load_index split (s): ' + json.dumps(split))
+        print(f'human ({tag}) stages (s): ' + json.dumps(stages))
+        print(f'human ({tag}) launches: ' + json.dumps(launches))
+        bases.append(base)
+        out[tag] = launches
+    shard_bytes = _index_bytes(ref, [n for _, n in GRCH38], k)
+    if len(shard_bytes) != HUMAN_SHARDS:
+        raise AssertionError(f'{len(shard_bytes)} shards, not '
+                             f'{HUMAN_SHARDS}')
+    print(f'human: {len(shard_bytes)} shards, device bytes {shard_bytes} '
+          f'(total {sum(shard_bytes) / 2**30:.3f} GiB)')
+    for suffix in ('.mappings.bed', '.filter_counts_summary.csv',
+                   '.bwa_dodi.bam'):
+        _same(bases[0] + suffix, bases[1] + suffix, f'human {suffix}')
+    print('human: warm == cold for mappings.bed, filter_counts_summary.csv '
+          'and BAM records')
+    t0 = time.perf_counter()
+    bam = check_bam(bases[0], ref, mask)
+    print(f'human BAM: {json.dumps(bam)}, checked in '
+          f'{time.perf_counter() - t0:.2f} s')
+    check_parse(ref)
+    return out['cold']
+
+
+def check_parse(ref_path):
+    """load_reference's bulk FASTA parse against a parse record by record
+    (read_fastx + encode, the port's load_reference before the bulk
+    one): the same names and codes.  Prints both times."""
+    from fslr_tpu_torch.encode import encode
+    from fslr_tpu_torch.index.reference import load_reference
+    from fslr_tpu_torch.io.fastq import read_fastx
+    t0 = time.perf_counter()
+    bulk = load_reference(ref_path)
+    t_bulk = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    names, parts = [], []
+    for rec in read_fastx(ref_path):
+        names.append(rec.name)
+        parts.append(encode(rec.sequence))
+    codes = np.concatenate(parts)
+    t_records = time.perf_counter() - t0
+    if names != bulk.names or not np.array_equal(codes, bulk.codes):
+        raise AssertionError('bulk FASTA parse differs from read_fastx')
+    print(f'parse: {len(codes)} bases in {len(names)} contigs, bulk '
+          f'(load_reference) {t_bulk:.3f} s, record by record (read_fastx '
+          f'+ encode) {t_records:.3f} s')
 
 
 DP_WRAPPERS = {   # the banded DP kernels: module, wrapper, (narrow, wide)
@@ -1230,12 +1579,14 @@ def main():
     build_kernels()
     checks = check_kernels(dev)
     with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root:
-        run_slice(dev, root)
+        check_index(dev, *run_slice(dev, root))
         launches = run_consensus(dev, root)
         cross_check(dev, root)
+        human = run_human(dev, root)
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=src, replaces=rep,
-             launches=launches[name], max_abs_err=checks[name]['max_abs_err'],
+             launches=launches[name], launches_human_3g=human[name],
+             max_abs_err=checks[name]['max_abs_err'],
              ms=checks[name]['ms'], plain_ms=checks[name]['plain_ms'],
              bound_ms=checks[name]['bound_ms'],
              bound_by=checks[name]['bound_by'], library_ms=None)

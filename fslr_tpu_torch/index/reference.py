@@ -1,11 +1,13 @@
-"""Reference genome loading and k-mer seed index (host-built, numpy).
+"""Reference genome loading and the k-mer seed index, built on a device.
 
 Replaces the reference pipeline's ``bwa index`` + FM-index seeding
-(fslr/main.py:125 ``bwa mem -k 11``,
-fslr/make_ref_mask.py:19) with a TPU-friendly design: a flat
-sorted k-mer -> positions table, replicated per host, that the device
-queries with pure gathers (ops/seed.py).  Seed length k mirrors bwa's
-``-k 11`` (config.AlignConfig.seed_k); k-mers containing N are excluded.
+(fslr/main.py:125 ``bwa mem -k 11``, fslr/make_ref_mask.py:19) with a
+flat sorted k-mer -> positions table that the aligner queries with
+gathers (ops/seed.py).  Seed length k mirrors bwa's ``-k 11``
+(config.AlignConfig.seed_k); k-mers containing N are excluded.  The index
+is built with torch ops on the caller's device and kept as numpy arrays,
+the form of the ``.npz`` cache that fslr_tpu also reads and writes; a
+genome above ``MAX_UNSHARDED_BASES`` is cut into contig-aligned shards.
 
 Also provides the masked-reference builder (make_ref_mask.py:5-19
 semantics): one region per chromosome, N-padding before the region start,
@@ -14,11 +16,14 @@ region sequence afterwards.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gzip
 
 import numpy as np
+import torch
 
-from fslr_tpu_torch.encode import encode
+from fslr_tpu_torch.encode import _ENC_ANYCASE, encode
 from fslr_tpu_torch.io.fastq import read_fastx
 
 
@@ -63,88 +68,145 @@ class IndexShard:
 MAX_UNSHARDED_BASES = 2 ** 30 - 2 ** 26
 
 
-def load_reference(path: str) -> Reference:
-    names, parts = [], []
-    for rec in read_fastx(path):
-        names.append(rec.name)
-        parts.append(encode(rec.sequence))
+def load_reference(path: str, names=None) -> Reference:
+    """The contigs of a FASTA (or FASTQ) file, optionally gzipped, encoded;
+    with ``names``, only the contigs of those names.
+
+    A FASTA is parsed in bulk: one read of the file, its line ends made
+    newlines as text mode makes them, each contig's newlines dropped and
+    bases encoded in one ``bytes.translate``.  Anything else goes record
+    by record through ``read_fastx``.  Both give the names and codes of
+    ``read_fastx`` + ``encode`` (tests/test_torch_index.py)."""
+    with (gzip.open if path.endswith('.gz') else open)(path, 'rb') as fh:
+        data = fh.read()
+    if data[:1] == b'>':
+        if b'\r' in data:
+            data = data.replace(b'\r\n', b'\n').replace(b'\r', b'\n')
+        contigs = _fasta_contigs(data, names)
+    else:
+        contigs = ((rec.name, encode(rec.sequence))
+                   for rec in read_fastx(path)
+                   if names is None or rec.name in names)
+    contigs = list(contigs)
+    del data
+    parts = [c for _, c in contigs]
     lengths = np.array([len(p) for p in parts], dtype=np.int64)
     offsets = np.concatenate([[0], np.cumsum(lengths)])
     codes = (np.concatenate(parts) if parts
              else np.zeros(0, dtype=np.uint8))
-    return Reference(names=names, lengths=lengths, offsets=offsets,
-                     codes=codes)
+    return Reference(names=[n for n, _ in contigs], lengths=lengths,
+                     offsets=offsets, codes=codes)
 
 
-def packed_seed_table(sidx: SeedIndex, C: int) -> np.ndarray:
-    """(4^k, 1 + C) int32 packed seed table: column 0 is each k-mer's
-    occurrence count, columns 1..C its evenly sampled reference positions
-    (same sampling as ops/seed.seed_candidates' legacy take: start +
-    (ci * occ) // C when occ > C, else start + ci).  One device row
-    gather replaces three scalar gathers in the seeding kernel.  Cached
-    on the SeedIndex; callers gate by C (HBM cost is 4^k * (1+C) * 4 B —
-    ~100 MB at C=5, so large-C repetitive-genome indexes keep the legacy
-    counts/positions path)."""
-    cached = getattr(sidx, '_packed_tab', None)
-    if cached is not None and cached.shape[1] == C + 1:
-        return cached
-    counts = sidx.counts.astype(np.int64)
-    occ = np.diff(counts)
-    n = len(occ)
-    starts = counts[:-1]
-    pos = sidx.positions
-    tab = np.zeros((n, C + 1), np.int32)
-    tab[:, 0] = np.minimum(occ, 2 ** 31 - 1)
-    use = np.minimum(occ, C)
-    # hash-staggered sampling phase: without it every k-mer of a tandem
-    # repeat samples the SAME C of occ copies, giving each sampled
-    # copy-diagonal the repeat's full seed density and starving distinct
-    # segments out of the candidate slots (tests/test_repetitive_recall);
-    # a per-kmer phase spreads density evenly over all occ copies while
-    # keeping every copy discoverable.  Mirrors ops/seed.seed_candidates'
-    # counts-path sampling.
-    step = np.maximum(occ // C, 1)
-    # uint32 wraparound product, matching the kernel's jnp.uint32 hash
-    phase = ((np.arange(n, dtype=np.uint32) * np.uint32(2654435761))
-             >> np.uint32(20)).astype(np.int64) % step
-    for ci in range(C):
-        idx = starts + np.where(occ > C, (ci * occ) // C + phase, ci)
-        v = pos[np.minimum(idx, max(len(pos) - 1, 0))]
-        tab[:, 1 + ci] = np.where(ci < use, v, 0)
-    sidx._packed_tab = tab
-    return tab
+_TRANSLATE = _ENC_ANYCASE.tobytes()
 
 
-def build_seed_index(ref: Reference, k: int,
-                     max_shard_bases: int = MAX_UNSHARDED_BASES
-                     ) -> SeedIndex:
+def _fasta_contigs(data: bytes, names=None):
+    """(name, codes) of every record of a FASTA held in ``data`` with
+    newline line ends (of those named ``names``): a record starts at a
+    line beginning with '>', its name is the header up to the first space
+    (else tab), its sequence every later line up to the next record,
+    newlines removed.  A sequence byte outside ASCII raises, as
+    ``encode`` does."""
+    head = 0
+    while head >= 0:
+        nl = data.find(b'\n', head)
+        nl = len(data) if nl < 0 else nl
+        nxt = data.find(b'\n>', nl)
+        end = len(data) if nxt < 0 else nxt + 1
+        line = data[head + 1:nl].decode()
+        name = line.split(' ' if ' ' in line else '\t', 1)[0]
+        if names is None or name in names:
+            seq = data[nl + 1:end]
+            if not seq.isascii():
+                raise ValueError(f'contig {name}: a byte outside ASCII')
+            yield name, np.frombuffer(seq.translate(_TRANSLATE, b'\n'),
+                                      np.uint8)
+        head = end if nxt >= 0 else -1
+
+
+def build_seed_index(ref: Reference, k: int, device: torch.device,
+                     max_shard_bases: int = MAX_UNSHARDED_BASES,
+                     timer=None) -> SeedIndex:
+    """The sorted k-mer -> positions index of ``ref``, built on ``device``.
+
+    Equal to ``fslr_tpu.index.reference.build_seed_index``: ``counts`` the
+    cumulative k-mer offsets (int64, 4^k + 1), ``positions`` the start of
+    every k-mer without an N and inside one contig (int32), sorted by
+    k-mer and ascending within one.  A genome above ``max_shard_bases``
+    with more than one contig is cut at contig boundaries into shards of
+    at most that size, each with its own index, built one after another.
+    ``timer`` (a StageTimer) gets each build's seconds as ``index_build``
+    (``index_build_shard{i}`` for shard i)."""
     if len(ref.codes) > max_shard_bases and len(ref.names) > 1:
-        return _build_sharded(ref, k, max_shard_bases)
-    codes = ref.codes.astype(np.int64)
-    n = len(codes) - k + 1
+        shards = []
+        for si, (c0, c1) in enumerate(
+                shard_contig_ranges(ref.lengths, max_shard_bases)):
+            sref = sub_reference(ref, c0, c1)
+            with _timed(timer, f'index_build_shard{si}', device):
+                counts, positions = _kmer_index(sref, k, device)
+            shards.append(IndexShard(
+                ref=sref, contig_base=c0,
+                sidx=SeedIndex(k=k, counts=counts, positions=positions)))
+        return SeedIndex(k=k, counts=np.zeros(0, np.int64),
+                         positions=np.zeros(0, np.int32), shards=shards)
+    with _timed(timer, 'index_build', device):
+        counts, positions = _kmer_index(ref, k, device)
+    return SeedIndex(k=k, counts=counts, positions=positions)
+
+
+@contextlib.contextmanager
+def _timed(timer, name: str, device: torch.device):
+    if timer is None:
+        yield
+        return
+    with timer.stage(name):
+        yield
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+
+
+def _kmer_index(ref: Reference, k: int, device: torch.device):
+    """(counts, positions) of one unsharded reference as numpy arrays.
+
+    Each k-mer's code is built in place from the k shifted base slices; a
+    k-mer holding an N or crossing a contig boundary gets the code 4^k,
+    which sorts after every real one.  One stable sort of the codes gives
+    the positions (its indices) in k-mer order and ascending within a
+    k-mer, and a search of the sorted codes for 0..4^k the cumulative
+    counts.  Device memory peaks in the sort, at about 36 bytes a base."""
+    n = len(ref.codes) - k + 1
     if n <= 0:
-        return SeedIndex(k=k, counts=np.zeros(4 ** k + 1, np.int64),
-                         positions=np.zeros(0, np.int32))
-    kdtype = np.int32 if 4 ** k < 2 ** 31 else np.int64
-    kmers = np.zeros(n, dtype=kdtype)
-    valid = np.ones(n, dtype=bool)
+        return np.zeros(4 ** k + 1, np.int64), np.zeros(0, np.int32)
+    absent = 4 ** k
+    dtype = torch.int32 if absent < 2 ** 31 else torch.int64
+    codes = torch.from_numpy(np.ascontiguousarray(ref.codes)).to(device)
+    kmers = torch.zeros(n, dtype=dtype, device=device)
+    valid = torch.ones(n, dtype=torch.bool, device=device)
     for p in range(k):
-        c = codes[p:p + n].astype(kdtype)
-        kmers = kmers * 4 + np.where(c < 4, c, 0)
-        valid &= c < 4
-    # exclude k-mers spanning contig boundaries
-    for off in ref.offsets[1:-1]:
-        lo = max(0, off - k + 1)
-        valid[lo:off] = False
-    pos = np.nonzero(valid)[0]
-    km = kmers[pos]
-    order = np.argsort(km, kind='stable')
-    positions = pos[order]
-    counts = np.zeros(4 ** k + 1, dtype=np.int64)
-    np.add.at(counts, km.astype(np.int64) + 1, 1)
-    counts = np.cumsum(counts)
-    return SeedIndex(k=k, counts=counts,
-                     positions=positions.astype(np.int32))
+        c = codes[p:p + n]
+        ok = c < 4
+        kmers.mul_(4).add_(c.masked_fill(~ok, 0))
+        valid &= ok
+    del codes, c, ok
+    for off in ref.offsets[1:-1].tolist():
+        valid[max(0, off - k + 1):off] = False
+    kmers.masked_fill_(~valid, absent)
+    del valid
+    ordered, order = torch.sort(kmers, stable=True)
+    del kmers
+    counts = torch.searchsorted(
+        ordered, torch.arange(absent + 1, dtype=dtype, device=device))
+    del ordered
+    positions = order[:int(counts[-1])].to(torch.int32)
+    del order
+    out = counts.cpu().numpy(), positions.cpu().numpy()
+    del counts, positions
+    if device.type == 'cuda':
+        # hand the sort's cached memory back: later calls size themselves
+        # by the card's free memory
+        torch.cuda.empty_cache()
+    return out
 
 
 def shard_contig_ranges(lengths, max_shard_bases: int = MAX_UNSHARDED_BASES
@@ -177,25 +239,15 @@ def sub_reference(ref: Reference, c0: int, c1: int) -> Reference:
         codes=ref.codes[base:int(ref.offsets[c1])])
 
 
-def _build_sharded(ref: Reference, k: int, max_shard_bases: int
-                   ) -> SeedIndex:
-    shards = []
-    for c0, c1 in shard_contig_ranges(ref.lengths, max_shard_bases):
-        sref = sub_reference(ref, c0, c1)
-        shards.append(IndexShard(ref=sref,
-                                 sidx=build_seed_index(sref, k,
-                                                       max_shard_bases),
-                                 contig_base=c0))
-    return SeedIndex(k=k, counts=np.zeros(0, np.int64),
-                     positions=np.zeros(0, np.int32), shards=shards)
-
-
 def write_masked_reference(mask_bed: str, out_path: str, ref_path: str):
     """Masked-reference FASTA with the reference's exact layout
     (make_ref_mask.py:5-19): per bed line ``chrom start end``, emit a contig
     named ``chrom`` consisting of (start-1) Ns followed by ref[start:end]
-    (0-based half-open fetch, as pysam.FastaFile.fetch)."""
-    ref = load_reference(ref_path)
+    (0-based half-open fetch, as pysam.FastaFile.fetch).  Only the
+    reference's contigs that the BED names are read."""
+    with open(mask_bed) as f:
+        chroms = {line.split('\t')[0] for line in f}
+    ref = load_reference(ref_path, names=chroms)
     name_to_idx = {n: i for i, n in enumerate(ref.names)}
     from fslr_tpu_torch.encode import decode
     with open(mask_bed) as f, open(out_path, 'w') as out:

@@ -11,9 +11,12 @@ Counterpart of ``fslr_tpu.pipeline._run_pipeline`` for one process:
   per-cluster consensus stage] -> ``{name}.timings.json``.
 
 Every stage runs on the device it is given: plain PyTorch on the CPU, the
-CUDA kernels on a card.  The seed index loads on a host thread while the
-filter runs; BAM records and mapping-table rows of one align chunk are
-built on one host thread while the next chunk aligns.  With
+CUDA kernels on a card.  The seed index loads (or is built on the device)
+on a host thread while the filter runs, as the masked reference is
+written with ``reference_mask``; a genome above
+``index.reference.MAX_UNSHARDED_BASES`` is indexed and aligned in
+contig-aligned shards.  BAM records and mapping-table rows of one align
+chunk are built on one host thread while the next chunk aligns.  With
 ``exact_cigars`` (the default) the BAM carries the traceback CIGARs,
 encoded column-wise (``io.bam.encode_chunk_items``); without it,
 approximate ones.  Artifacts equal ``fslr_tpu``'s for the same config
@@ -23,6 +26,7 @@ either way.
 from __future__ import annotations
 
 import contextlib
+import glob
 import os
 import sys
 import threading
@@ -48,8 +52,6 @@ def _check_supported(config: PipelineConfig):
     """Raise NotImplementedError, naming the ROADMAP.md item that ports
     it, for every setting outside this package's slice."""
     todo = [
-        (config.reference_mask is None, 'reference_mask',
-         'the masked reference and the sharded index'),
         (not config.skip_alignment, 'skip_alignment=True',
          'parallel/ over NCCL'),
         (config.n_processes == 1, 'n_processes > 1',
@@ -62,38 +64,81 @@ def _check_supported(config: PipelineConfig):
                 f'port queue item "{item}"')
 
 
-def _load_indexed(path: str, k: int):
+def _load_indexed(path: str, k: int, device: torch.device, timer=None):
     """Reference + seed index, with the ``{ref}.fslr_k{k}.npz`` cache that
-    fslr_tpu's pipeline also reads and writes."""
-    ref = refmod.load_reference(path)
-    if len(ref.codes) > refmod.MAX_UNSHARDED_BASES and len(ref.names) > 1:
-        raise NotImplementedError(
-            f'{path}: {len(ref.codes)} bases need the sharded index: '
-            'ROADMAP.md, port queue item "the masked reference and the '
-            'sharded index"')
+    fslr_tpu's pipeline also reads and writes (``counts`` and
+    ``positions``, or per shard ``counts_{i}`` and ``positions_{i}`` with
+    the shards' contig ranges in ``shard_bounds``).  A missing, stale or
+    unreadable cache is rebuilt on ``device``.  ``timer`` gets the
+    seconds of ``index_parse``, ``index_cache_read`` or the build and
+    ``index_cache_write``."""
+    timed = timer.stage if timer else lambda name: contextlib.nullcontext()
+    with timed('index_parse'):
+        ref = refmod.load_reference(path)
     cache = f'{path}.fslr_k{k}.npz'
     try:
         if os.path.exists(cache) and \
                 os.path.getmtime(cache) >= os.path.getmtime(path):
-            with np.load(cache) as z:
-                if 'counts' in z:
+            with timed('index_cache_read'), np.load(cache) as z:
+                if 'shard_bounds' not in z:
                     return ref, refmod.SeedIndex(k=k, counts=z['counts'],
                                                  positions=z['positions'])
-            print(f'WARNING: seed-index cache {cache} holds a sharded '
-                  f'index; rebuilding from {path}', file=sys.stderr)
+                shards = [refmod.IndexShard(
+                    ref=refmod.sub_reference(ref, int(c0), int(c1)),
+                    contig_base=int(c0),
+                    sidx=refmod.SeedIndex(k=k, counts=z[f'counts_{si}'],
+                                          positions=z[f'positions_{si}']))
+                    for si, (c0, c1) in enumerate(z['shard_bounds'])]
+                return ref, refmod.SeedIndex(
+                    k=k, counts=np.zeros(0, np.int64),
+                    positions=np.zeros(0, np.int32), shards=shards)
     except Exception as e:
         # a truncated write or version skew: say so loudly, then rebuild
         print(f'WARNING: seed-index cache {cache} unreadable '
               f'({type(e).__name__}: {e}); rebuilding from {path}',
               file=sys.stderr)
-    sidx = refmod.build_seed_index(ref, k)
+    sidx = refmod.build_seed_index(ref, k, device, timer=timer)
+    if sidx.shards:
+        arrs = {'shard_bounds': np.array(
+            [(sh.contig_base, sh.contig_base + len(sh.ref.names))
+             for sh in sidx.shards], np.int64)}
+        for si, sh in enumerate(sidx.shards):
+            arrs[f'counts_{si}'] = sh.sidx.counts
+            arrs[f'positions_{si}'] = sh.sidx.positions
+    else:
+        arrs = dict(counts=sidx.counts, positions=sidx.positions)
     try:
-        np.savez(cache, counts=sidx.counts, positions=sidx.positions)
+        with timed('index_cache_write'):
+            np.savez(cache, **arrs)
     except Exception as e:
         print(f'WARNING: could not write seed-index cache {cache} '
               f'({type(e).__name__}: {e}); next run will rebuild',
               file=sys.stderr)
     return ref, sidx
+
+
+def _start(fn, *args):
+    """Run ``fn(*args)`` on a daemon thread; :func:`_result` waits for it."""
+    box: dict = {}
+
+    def run():
+        try:
+            box['result'] = fn(*args)
+        except BaseException as e:        # re-raised in the caller's thread
+            box['error'] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread, box
+
+
+def _result(job):
+    """The return value of a :func:`_start` job, or its exception."""
+    thread, box = job
+    thread.join()
+    if 'error' in box:
+        raise box['error']
+    return box['result']
 
 
 def _merge_existing(dst: dict, src: dict):
@@ -152,9 +197,12 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
     """Run filter -> primers -> align -> BAM + mappings.bed -> clustering
     [-> consensus] on ``device``.
 
-    Takes ``n_processes=1``, no reference_mask, no skip_alignment and an
-    unsharded index; anything else raises NotImplementedError.  Input
-    files are processed one after another (``procs`` is not used)."""
+    Takes ``n_processes=1`` and no skip_alignment; anything else raises
+    NotImplementedError.  With ``reference_mask`` the reads are also
+    mapped against the masked reference (``{name}_temp_ref.fa``, written
+    on a host thread while the filter runs) and both references'
+    candidates are pooled before selection.  Input files are processed
+    one after another (``procs`` is not used)."""
     if not isinstance(device, torch.device):
         raise TypeError(f'device must be a torch.device, not {device!r}')
     _check_supported(config)
@@ -180,17 +228,14 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
     panel = load_panel().subset(config.primers)
     os.makedirs(config.out, exist_ok=True)
 
-    # the seed index loads (or builds) on the host while the filter runs
-    idx_box: dict = {}
-
-    def _load():
-        try:
-            idx_box['index'] = _load_indexed(config.ref, config.align.seed_k)
-        except BaseException as e:        # re-raised in the main thread
-            idx_box['error'] = e
-
-    idx_thread = threading.Thread(target=_load, daemon=True)
-    idx_thread.start()
+    # the masked reference is written, and the seed index loaded (or
+    # built on the device), on host threads while the filter runs
+    masked_ref_path = f'{basename}_temp_ref.fa'
+    if config.reference_mask:
+        mask_job = _start(refmod.write_masked_reference,
+                          config.reference_mask, masked_ref_path, config.ref)
+    idx_job = _start(_load_indexed, config.ref, config.align.seed_k, device,
+                     timer)
 
     print('Filtering reads: ', config.basecalled, file=sys.stderr)
     fs = glob_input_files(config.basecalled)
@@ -228,11 +273,19 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
             os.remove(pth)
 
     with stage('load_index'):
-        idx_thread.join()
-        if 'error' in idx_box:
-            raise idx_box['error']
-        ref, sidx = idx_box['index']
-        didx = align_stage.device_index(ref, sidx, device, config.align)
+        ref, sidx = _result(idx_job)
+        with stage('index_upload'):
+            didx = align_stage.device_index(ref, sidx, device, config.align)
+    masked = None
+    if config.reference_mask:
+        _result(mask_job)
+        print(f'Mapping against masked reference defined by '
+              f'{config.reference_mask}', file=sys.stderr)
+        with stage('load_masked_index'):
+            mref, msidx = _load_indexed(masked_ref_path, config.align.seed_k,
+                                        device)
+            masked = (mref, align_stage.device_index(mref, msidx, device,
+                                                     config.align))
 
     # streamed align: chunk k's BAM records and table rows are built on
     # one host thread while chunk k+1 aligns
@@ -277,6 +330,7 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
                 with stage('align'):
                     aln = align_stage.align_batch(
                         seqs, ref, didx, config, regions_path=config.regions,
+                        masked=masked,
                         codes=fa.codes_slice(off, hi), timer=timer)
                 pending.append(post_pool.submit(
                     _post_chunk, aln, qnames, seqs, fa, off))
@@ -290,7 +344,8 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
                               ref.lengths, bam_items, write_index=True)
     del bam_items
     if not config.keep_temp:
-        for pth in labelled:
+        # the masked reference and its index cache go too
+        for pth in glob.glob(f'{basename}_temp_ref.fa*') + labelled:
             os.remove(pth)
 
     with stage('mapping_table'):
@@ -312,9 +367,10 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
         fc.write(','.join(str(k) for k in filter_counts.keys()) + '\n')
         fc.write(','.join(str(v) for v in filter_counts.values()) + '\n')
 
-    # the align stage's device tensors (genome, seed index) go before the
-    # clustering; the consensus stage uploads the index again
-    del didx
+    # the align stage's device tensors (every shard's genome and seed
+    # index, and the masked reference's) go before the clustering; the
+    # consensus stage uploads the main index again
+    del didx, masked
 
     if not config.skip_clustering:
         print('Making clusters')

@@ -1,24 +1,30 @@
 """Alignment stage: seed -> candidate bands -> banded extension -> selection
 -> traceback emit -> z-drop split.
 
-Counterpart of ``fslr_tpu/stages/align.py`` for an unsharded index.  Per
-read batch:
+Counterpart of ``fslr_tpu/stages/align.py``.  Per read batch, against
+each source (the reference, or each shard of a sharded one, and the
+masked reference when one is given):
 
   1. seeding of both strands against the device-resident index
      (ops/seed.py) gives candidate diagonal bands;
   2. near-diagonal bands of one (read, strand) merge, and bwa-style chain
-     filtering drops shadowed bands (host numpy);
+     filtering drops shadowed bands (host numpy); a sharded index first
+     keeps one budget of bands per (read, strand) across its shards and
+     filters chains across them;
   3. the score-only banded extension, forward then reversed
      (ops/banded.banded_extend_score), gives each band's score, ends and
      begins;
-  4. the dodi-equivalent selection DP (ops/selection.py) with optional
-     region bias picks each read's alignments; the first best-scoring one
+  4. the candidates of every source pooled (shard contigs renumbered into
+     the reference's, masked contigs by name), the dodi-equivalent
+     selection DP (ops/selection.py) with optional region bias picks each
+     read's alignments; the first best-scoring one
      is primary; MAPQ follows the bwa-mem single-end model;
   5. with ``exact_cigars`` (the default), the traceback extension
      (ops/traceback.banded_extend) runs on the selected alignments only
-     and gives their CIGARs (columnar RLE) and walk-derived begins; then
-     the z-drop split cuts alignments at indel runs that bwa's z-drop
-     would not have bridged (host numpy).
+     against each one's own source genome and gives their CIGARs
+     (columnar RLE) and walk-derived begins; then the z-drop split cuts
+     alignments at indel runs that bwa's z-drop would not have bridged
+     (host numpy, replayed against the source's codes).
 
 Alignment records carry query coordinates in record orientation plus the
 strand, as the JAX package's do.
@@ -115,12 +121,24 @@ class Cands(_Cols):
     qmx: np.ndarray      # int64 max seed query pos
     wcnt: np.ndarray     # int64 occurrence-sampling-corrected seed weight
 
+    @staticmethod
+    def concat(parts):
+        return Cands(*(np.concatenate([getattr(p, f.name) for p in parts])
+                       for f in dataclasses.fields(Cands)))
+
+
+def _empty_cands() -> Cands:
+    return Cands(*(np.zeros(0, bool if f.name == 'srev' else np.int64)
+                   for f in dataclasses.fields(Cands)))
+
 
 @dataclasses.dataclass
 class CandAln(_Cols):
     """Candidate alignments before selection (score pass coordinates),
     with the extension geometry that the traceback emit of the selected
-    rows re-runs (global genome coordinates; one genome)."""
+    rows re-runs: window and contig bounds in the coordinates of the
+    source genome ``genomes[src]`` (device codes, host codes), one entry
+    per source (reference, shard or masked reference)."""
     read_idx: np.ndarray
     strand_rev: np.ndarray
     chrom_idx: np.ndarray
@@ -136,6 +154,35 @@ class CandAln(_Cols):
     ext_sl: np.ndarray       # slice bucket (kernel row width)
     ext_cmin: np.ndarray     # contig lower bound
     ext_cmax: np.ndarray     # contig upper bound
+    src: np.ndarray          # int32 index into genomes
+    genomes: list            # (device codes, host codes) per source
+
+    def take(self, idx):
+        return CandAln(*(getattr(self, f.name)[idx]
+                         for f in dataclasses.fields(self)[:-1]),
+                       self.genomes)
+
+    @staticmethod
+    def concat(parts):
+        """The rows of ``parts`` in order, ``src`` renumbered into the
+        joined list of genomes."""
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            return _empty_cand_aln()
+        genomes, cols = [], []
+        for p in parts:
+            cols.append([getattr(p, f.name)
+                         for f in dataclasses.fields(p)[:-2]]
+                        + [p.src + len(genomes)])
+            genomes.extend(p.genomes)
+        return CandAln(*(np.concatenate(c) for c in zip(*cols)), genomes)
+
+
+def _empty_cand_aln() -> CandAln:
+    dtypes = {'strand_rev': bool, 'ext_qlen': np.int32, 'ext_sl': np.int32,
+              'src': np.int32}
+    return CandAln(*(np.zeros(0, dtypes.get(f.name, np.int64))
+                     for f in dataclasses.fields(CandAln)[:-1]), [])
 
 
 # ---------------------------------------------------------------------------
@@ -144,13 +191,17 @@ class CandAln(_Cols):
 
 @dataclasses.dataclass
 class DeviceIndex:
-    """The reference and seed index as device tensors (the port's own
-    cache; the JAX package's SeedIndex is never written)."""
+    """One reference's genome and seed index as device tensors, or one
+    shard's (the port's own cache; the JAX package's SeedIndex is never
+    written)."""
     genome: torch.Tensor          # (G,) uint8 codes
     counts: torch.Tensor          # (4^k + 1,) int32 cumulative offsets
     positions: torch.Tensor       # (n,) int32 k-mer-sorted positions
     occ_cap: int                  # per-seed occurrence cap C
     table: torch.Tensor | None    # (4^k, 1 + C) int32 packed seed table
+    ref: Reference                # the host reference these tensors hold
+    contig_base: int = 0          # index of ref's first contig in the
+                                  # full reference
 
 
 def _occ_cap(sidx: SeedIndex, acfg: AlignConfig) -> int:
@@ -186,23 +237,27 @@ def _build_table(counts, positions, C: int):
 
 
 def device_index(ref: Reference, sidx: SeedIndex, device: torch.device,
-                 acfg: AlignConfig | None = None) -> DeviceIndex:
+                 acfg: AlignConfig | None = None) -> list[DeviceIndex]:
     """Move the genome codes (uint8), the k-mer counts and positions
     (int32) to ``device`` and build the packed seed table there when the
     occurrence cap allows it (counterpart of _device_arrays and
-    _device_table)."""
+    _device_table): one DeviceIndex for an unsharded index, one per shard
+    (at least two) for a sharded one, each with its own cap."""
     acfg = acfg or AlignConfig()
-    if sidx.shards:
-        raise NotImplementedError(
-            'sharded seed index (genome > MAX_UNSHARDED_BASES): ROADMAP.md, '
-            'port queue item "the masked reference and the sharded index"')
-    genome = torch.from_numpy(np.ascontiguousarray(ref.codes)).to(device)
-    counts = torch.from_numpy(sidx.counts.astype(np.int32)).to(device)
-    positions = torch.from_numpy(sidx.positions.astype(np.int32)).to(device)
-    C = _occ_cap(sidx, acfg)
-    table = (_build_table(counts, positions, C)
-             if C <= _MAX_TABLE_C and sidx.positions.size > 0 else None)
-    return DeviceIndex(genome, counts, positions, C, table)
+    parts = ([(sh.ref, sh.sidx, sh.contig_base) for sh in sidx.shards]
+             if sidx.shards else [(ref, sidx, 0)])
+    out = []
+    for pref, psidx, base in parts:
+        genome = torch.from_numpy(np.ascontiguousarray(pref.codes)).to(device)
+        counts, positions = (
+            torch.from_numpy(np.asarray(a, np.int32)).to(device)
+            for a in (psidx.counts, psidx.positions))
+        C = _occ_cap(psidx, acfg)
+        table = (_build_table(counts, positions, C)
+                 if C <= _MAX_TABLE_C and psidx.positions.size > 0 else None)
+        out.append(DeviceIndex(genome, counts, positions, C, table, pref,
+                               base))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +311,7 @@ def _seed_rows(cat_d, off: np.ndarray, didx: DeviceIndex,
             pending.append((part, torch.stack(
                 [res[n].to(torch.int32) for n in _SEED_KEYS])))
     if not pending:
-        return Cands(*([np.zeros(0, np.int64)] * 7))
+        return _empty_cands()
     flat = torch.cat([p.reshape(-1) for (_, p) in pending]).cpu().numpy()
     cols = {n: [] for n in ('ridx', 'srev', 'dga', 'cnt', 'qmn', 'qmx',
                             'wcnt')}
@@ -331,17 +386,17 @@ def _merge_near_diagonal(cands: Cands, config: PipelineConfig) -> Cands:
 
 
 def _chain_filter(cands: Cands, rlens: np.ndarray,
-                  config: PipelineConfig) -> Cands:
+                  config: PipelineConfig) -> np.ndarray:
     """bwa mem chain filtering (mem_chain_flt, -D 0.25): a read's bands in
     weight order; a band whose forward-read query span overlaps a kept
     band by >= mask_level of its own span, with weight below drop_ratio
-    of that band's, is dropped."""
+    of that band's, is dropped.  Returns the kept rows' indices."""
     acfg = config.align
     mask_level = acfg.chain_mask_level
     drop_ratio = acfg.chain_drop_ratio
     n = len(cands)
     if drop_ratio <= 0 or n == 0:
-        return cands
+        return np.arange(n)
     L = rlens[cands.ridx]
     lo_a = np.where(cands.srev, L - cands.qmx, cands.qmn)
     hi_a = np.where(cands.srev, L - cands.qmn, cands.qmx)
@@ -371,7 +426,7 @@ def _chain_filter(cands: Cands, rlens: np.ndarray,
         keep_s[cur] = ~shadowed
     keep = np.zeros(n, bool)
     keep[ordr] = keep_s
-    return cands.take(np.flatnonzero(keep))
+    return np.flatnonzero(keep)
 
 
 # ---------------------------------------------------------------------------
@@ -386,16 +441,17 @@ def _rows_per_call(SL: int, device: torch.device) -> int:
     return max(128, free // 8 // (32 * (SL + 2 * banded.BW)))
 
 
-def _extend_rows(cands: Cands, cat_d, off: np.ndarray, ref: Reference,
-                 didx: DeviceIndex, config: PipelineConfig) -> CandAln:
+def _extend_rows(cands: Cands, cat_d, off: np.ndarray, didx: DeviceIndex,
+                 config: PipelineConfig) -> CandAln:
     """Score pass over every band: the read slice [qmin - margin,
-    qmax + margin) against its band window, forward then reversed.
-    Candidates keep the JAX package's order (slice bucket, then band)."""
+    qmax + margin) against its band window in ``didx``'s genome, forward
+    then reversed.  Candidates keep the JAX package's order (slice
+    bucket, then band); contigs are ``didx.ref``'s."""
     acfg = config.align
+    ref = didx.ref
     n = len(cands)
     if n == 0:
-        return CandAln(*([np.zeros(0, np.int64)]
-                         * len(dataclasses.fields(CandAln))))
+        return _empty_cand_aln()
     dev = cat_d.device
     margin = acfg.extension_margin
     Lq = np.diff(off)[cands.ridx]
@@ -453,7 +509,8 @@ def _extend_rows(cands: Cands, cat_d, off: np.ndarray, ref: Reference,
                    ext_qlen=np.minimum(qhi - qlo, sl_of)[ck]
                    .astype(np.int32),
                    ext_sl=sl_of[ck].astype(np.int32), ext_cmin=cmin_all[ck],
-                   ext_cmax=cmax_all[ck])
+                   ext_cmax=cmax_all[ck], src=np.zeros(len(ck), np.int32),
+                   genomes=[(didx.genome, ref.codes)])
 
 
 # ---------------------------------------------------------------------------
@@ -508,14 +565,14 @@ def _bwa_style_mapq(s1, s2, span, rspan, sub_n, match_a: int,
     return np.clip(mq, 0, 60)
 
 
-def _select_and_finalize(ca: CandAln, ref: Reference, didx: DeviceIndex,
+def _select_and_finalize(ca: CandAln, ref: Reference,
                          config: PipelineConfig, regions_path: str | None,
                          cat: np.ndarray, off: np.ndarray, cat_d,
                          timer=None) -> Alignments:
     """Dedup, selection, walk-derived begins and CIGARs (exact_cigars),
     primary flags, MAPQ, then the z-drop split -- fslr_tpu's order."""
     acfg = config.align
-    device = didx.genome.device
+    device = cat_d.device
     regions = _build_regions(regions_path, ref.names)
     if len(ca) == 0:
         return empty_alignments()
@@ -584,7 +641,7 @@ def _select_and_finalize(ca: CandAln, ref: Reference, didx: DeviceIndex,
     if config.exact_cigars:
         with timer.stage('align_emit') if timer else contextlib.nullcontext():
             cig_rle, (qs_walk, rs_walk) = _emit_selected(
-                ca, sel_idx, cat_d, off, didx, config)
+                ca, sel_idx, cat_d, off, config)
         # walk-derived begins replace the reverse-pass ones, so that
         # records and their CIGARs describe the same co-optimal path
         ca.qstart_o[sel_idx] = qs_walk
@@ -649,11 +706,11 @@ def _no_emits(n: int):
 
 
 def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
-                   didx: DeviceIndex, config: PipelineConfig):
+                   config: PipelineConfig):
     """Traceback extension over the selected candidates only
-    (fslr_tpu.stages.align._emit_selected): rows grouped by slice bucket
-    and chunked so that a call's codes take about _EMIT_BITS bytes; all
-    results come back in two transfers.
+    (fslr_tpu.stages.align._emit_selected): rows grouped by source genome
+    and slice bucket and chunked so that a call's codes take about
+    _EMIT_BITS bytes; all results come back in two transfers.
 
     Returns (cig_rle, (qstart_o, rstart)): the columnar RLE (has, cnt,
     flat_len, flat_op) in selected order, op codes 0/1/2 = M/I/D, and the
@@ -663,6 +720,7 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
         return _no_emits(0), (np.zeros(0, np.int64), np.zeros(0, np.int64))
     dev = cat_d.device
     sl = ca.ext_sl[sel_idx].astype(np.int64)
+    keys = (ca.src[sel_idx].astype(np.int64) << 32) | sl
     ri = ca.read_idx[sel_idx]
     qlo = ca.ext_qlo[sel_idx]
     ws = ca.ext_ws[sel_idx]
@@ -671,9 +729,10 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
             ca.strand_rev[sel_idx], ca.ext_qlen[sel_idx].astype(np.int32),
             ws, cmin, ca.ext_cmax[sel_idx])
     pending = []          # (selected rows, (6, n) packed, emits)
-    for SL in np.unique(sl):
-        SL = int(SL)
-        gall = np.flatnonzero(sl == SL)
+    for key in np.unique(keys).tolist():
+        genome = ca.genomes[key >> 32][0]
+        SL = key & 0xffffffff
+        gall = np.flatnonzero(keys == key)
         rows_per = max(1, _EMIT_BITS // (SL * 64))
         for o in range(0, len(gall), rows_per):
             g = gall[o:o + rows_per]
@@ -682,7 +741,7 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
                 for a in rows)
             q = _query_rows(cat_d, sf, er, srev, qlens, SL)
             pending.append((g, *traceback.banded_extend(
-                q, qlens, ws_g, cmin_g, cmax_g, didx.genome,
+                q, qlens, ws_g, cmin_g, cmax_g, genome,
                 config.align.scoring)))
     allp = torch.cat([p.reshape(-1) for _, p, _ in pending]).cpu().numpy()
     alle = torch.cat([e.reshape(-1) for _, _, e in pending]).cpu().numpy()
@@ -701,7 +760,7 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
         seg_len_l.append(sl_)
         seg_op_l.append(so_)
     seg_rows = np.concatenate(seg_rows_l)
-    # groups leave rows unordered across buckets; a stable sort by row
+    # groups leave rows unordered across groups; a stable sort by row
     # restores selected order and keeps each row's op order
     ordr = np.argsort(seg_rows, kind='stable')
     cnt = np.bincount(seg_rows, minlength=n).astype(np.int64)
@@ -717,7 +776,7 @@ def _zdrop_split_rows(out: Alignments, ca: CandAln, sel_idx: np.ndarray,
     """bwa z-drop equivalent (fslr_tpu.stages.align._zdrop_split_rows):
     a selected alignment with an interior indel run whose affine penalty
     exceeds ``zdrop`` is cut at those runs; each piece's score is
-    replayed on the host from the query and reference codes (+match /
+    replayed on the host from the query and source genome codes (+match /
     mismatch, N = mismatch, a gap run g costs open + ext*g), pieces below
     the dodi floor are dropped, edge indel runs of a piece are trimmed,
     and primary flags are re-derived.  MAPQ is inherited from the fused
@@ -741,6 +800,7 @@ def _zdrop_split_rows(out: Alignments, ca: CandAln, sel_idx: np.ndarray,
     big = (flat_len >= g_split) & (flat_op != 0)
     if not np.any(big):
         return out
+    src_sel = ca.src[sel_idx]
     cmin_sel = ca.ext_cmin[sel_idx]
     keep_seg = np.ones(len(flat_len), bool)
     pieces_per_row = np.ones(n_rows, np.int64)
@@ -755,6 +815,7 @@ def _zdrop_split_rows(out: Alignments, ca: CandAln, sel_idx: np.ndarray,
         L = int(out.qlen[r])
         qrec = (_COMP[cat[o:o + L]][::-1] if out.strand_rev[r]
                 else cat[o:o + L])
+        ref_codes = ca.genomes[src_sel[r]][1]
         rabs0 = int(cmin_sel[r] + out.rstart[r])
         qoff = np.zeros(n_seg + 1, np.int64)
         roff = np.zeros(n_seg + 1, np.int64)
@@ -777,7 +838,7 @@ def _zdrop_split_rows(out: Alignments, ca: CandAln, sel_idx: np.ndarray,
                     ln = int(sl[t])
                     if so[t] == 0:
                         a = qrec[q0 + int(qoff[t]):q0 + int(qoff[t]) + ln]
-                        bref = ref.codes[rabs0 + int(roff[t]):
+                        bref = ref_codes[rabs0 + int(roff[t]):
                                          rabs0 + int(roff[t]) + ln]
                         m = int(np.sum((a == bref) & (a < 4) & (bref < 4)))
                         score += m * sc.match + (ln - m) * sc.mismatch
@@ -843,24 +904,88 @@ def _mark_primary(out: Alignments):
     out.is_primary[ordr[first_m]] = True
 
 
-def align_batch(seqs: list[str], ref: Reference, didx: DeviceIndex,
+def _gather_candidates(cat_d, off: np.ndarray, didx: list[DeviceIndex],
+                       config: PipelineConfig) -> CandAln:
+    """Seed + extend: candidate alignments against one reference, in its
+    contig numbering (fslr_tpu.stages.align._gather_candidates)."""
+    if len(didx) > 1:
+        return _gather_candidates_sharded(cat_d, off, didx, config)
+    (d,) = didx
+    cands = _seed_rows(cat_d, off, d, config)
+    cands = _merge_near_diagonal(cands, config)
+    cands = cands.take(_chain_filter(cands, np.diff(off), config))
+    return _extend_rows(cands, cat_d, off, d, config)
+
+
+def _gather_candidates_sharded(cat_d, off: np.ndarray,
+                               shards: list[DeviceIndex],
+                               config: PipelineConfig) -> CandAln:
+    """Seed every shard, keep the per-(read, strand) budget an unsharded
+    index would have (the max_candidates heaviest bands, stable ties),
+    merge near-diagonal bands within each shard, filter chains across all
+    shards, then extend per shard and renumber its contigs
+    (fslr_tpu.stages.align._gather_candidates_sharded)."""
+    parts = [_seed_rows(cat_d, off, d, config) for d in shards]
+    cands = Cands.concat(parts)
+    sid = np.repeat(np.arange(len(parts)), [len(p) for p in parts])
+    n = len(cands)
+    if n == 0:
+        return _empty_cand_aln()
+    ordr = np.lexsort((np.arange(n), -cands.wcnt, cands.srev, cands.ridx))
+    key = cands.ridx[ordr] * 2 + cands.srev[ordr]
+    new_grp = np.ones(n, bool)
+    new_grp[1:] = key[1:] != key[:-1]
+    gstart = np.flatnonzero(new_grp)
+    rank = np.arange(n) - np.repeat(gstart, np.diff(np.append(gstart, n)))
+    keep = np.zeros(n, bool)
+    keep[ordr] = rank < config.align.max_candidates
+    cands, sid = cands.take(np.flatnonzero(keep)), sid[keep]
+    # a merged band's window must lie in one shard's genome
+    merged = [_merge_near_diagonal(cands.take(np.flatnonzero(sid == si)),
+                                   config) for si in np.unique(sid)]
+    sid = np.repeat(np.unique(sid), [len(m) for m in merged])
+    cands = Cands.concat(merged)
+    kept = _chain_filter(cands, np.diff(off), config)
+    cands, sid = cands.take(kept), sid[kept]
+    out = []
+    for si, d in enumerate(shards):
+        rows = np.flatnonzero(sid == si)
+        if len(rows):
+            a = _extend_rows(cands.take(rows), cat_d, off, d, config)
+            a.chrom_idx = a.chrom_idx + d.contig_base
+            out.append(a)
+    return CandAln.concat(out)
+
+
+def align_batch(seqs: list[str], ref: Reference, didx: list[DeviceIndex],
                 config: PipelineConfig, regions_path: str | None = None,
+                masked: tuple[Reference, list[DeviceIndex]] | None = None,
                 codes: tuple[np.ndarray, np.ndarray] | None = None,
                 timer=None) -> Alignments:
-    """Align a list of read sequences against the device-resident index;
-    returns the selected alignments.  ``codes``: the reads as
-    (concatenated 0-4 codes, offsets), when the caller already holds
-    them.  ``timer`` (a StageTimer) gets the traceback emit's time as
-    ``align_emit``."""
+    """Align a list of read sequences against the device-resident index
+    (``device_index``; one entry per shard); returns the selected
+    alignments.  ``masked``: the masked reference and its device index;
+    its candidates, on contigs that ``ref`` also names, are pooled with
+    the reference's before selection, as fslr_tpu pools them.
+    ``codes``: the reads as (concatenated 0-4 codes, offsets), when the
+    caller already holds them.  ``timer`` (a StageTimer) gets the
+    traceback emit's time as ``align_emit``."""
     if codes is None:
         from fslr_tpu_torch.encode import encode_cat
         codes = encode_cat(seqs)
     cat, off = codes
-    device = didx.genome.device
-    cat_d = torch.from_numpy(np.ascontiguousarray(cat)).to(device)
-    cands = _seed_rows(cat_d, off, didx, config)
-    cands = _merge_near_diagonal(cands, config)
-    cands = _chain_filter(cands, np.diff(off), config)
-    ca = _extend_rows(cands, cat_d, off, ref, didx, config)
-    return _select_and_finalize(ca, ref, didx, config, regions_path, cat,
-                                off, cat_d, timer)
+    cat_d = torch.from_numpy(np.ascontiguousarray(cat)).to(
+        didx[0].genome.device)
+    ca = _gather_candidates(cat_d, off, didx, config)
+    if masked is not None:
+        mref, mdidx = masked
+        name_to_idx = {n: i for i, n in enumerate(ref.names)}
+        mca = _gather_candidates(cat_d, off, mdidx, config)
+        remap = np.array([name_to_idx.get(n, -1) for n in mref.names],
+                         np.int64)
+        new_ci = remap[mca.chrom_idx]
+        mca = mca.take(np.flatnonzero(new_ci >= 0))
+        mca.chrom_idx = new_ci[new_ci >= 0]
+        ca = CandAln.concat([ca, mca])
+    return _select_and_finalize(ca, ref, config, regions_path, cat, off,
+                                cat_d, timer)

@@ -1,11 +1,22 @@
-"""Synthetic fusion-amplicon dataset (the repo's bench configuration).
+"""Synthetic fusion-amplicon datasets.
 
-A copy of ``bench.make_dataset``: for the same arguments it writes the
-same ``ref.fa`` and ``reads/b0.fastq`` bytes.  Two random contigs chrA and
-chrB (seed 123); read ``r{i}`` is the 21q1 target, chrA[1.0 M, +800),
-chrB[600_000 + (i % n_groups) * span, +1000), chrA[1.2 M, +800) and the
-reverse complement of the 17p6 target, so reads of one breakpoint group
-are identical and groups are ``span`` apart on chrB.
+``make_dataset`` is a copy of ``bench.make_dataset`` (the repo's bench
+configuration): for the same arguments it writes the same ``ref.fa`` and
+``reads/b0.fastq`` bytes.  Two random contigs chrA and chrB (seed 123);
+read ``r{i}`` is the 21q1 target, chrA[1.0 M, +800), chrB[600_000 +
+(i % n_groups) * span, +1000), chrA[1.2 M, +800) and the reverse
+complement of the 17p6 target, so reads of one breakpoint group are
+identical and groups are ``span`` apart on chrB.
+
+``make_grch38_layout_dataset`` writes a human-size reference: GRCh38's 24
+primary-assembly chromosomes at their lengths (3,088,269,832 bp) of
+seeded random bases in 60-column lines, a mask BED over the reads'
+segments, and reads of the same structure with chr1 in chrA's place and
+chrX in chrB's.
+
+``make_masked_dataset`` writes the masked-reference scenario of the
+JAX package's pipeline tests: one 300 kbp contig, a mask BED and a regions
+BED inside it, and two FASTQ files of three reads that lie in both.
 
     python -m fslr_tpu_torch.tools.synth ROOT N_READS [N_GROUPS]
 """
@@ -59,6 +70,117 @@ def make_dataset(root: str, n_reads: int = 1000, n_groups: int = 20,
                    + sub(chrA, 1_200_000, 800) + t17rc)
             fh.write(f'@r{i}\n{seq}\n+\n{"I" * len(seq)}\n')
     return ref_path, fq_dir
+
+
+# GRCh38 primary assembly (chromosomes only), lengths in bp
+GRCH38 = (('chr1', 248956422), ('chr2', 242193529), ('chr3', 198295559),
+          ('chr4', 190214555), ('chr5', 181538259), ('chr6', 170805979),
+          ('chr7', 159345973), ('chr8', 145138636), ('chr9', 138394717),
+          ('chr10', 133797422), ('chr11', 135086622), ('chr12', 133275309),
+          ('chr13', 114364328), ('chr14', 107043718), ('chr15', 101991189),
+          ('chr16', 90338345), ('chr17', 83257441), ('chr18', 80373285),
+          ('chr19', 58617616), ('chr20', 64444167), ('chr21', 46709983),
+          ('chr22', 50818468), ('chrX', 156040895), ('chrY', 57227415))
+GRCH38_MASK = (('chr1', 900_000, 1_300_000), ('chrX', 500_000, 1_500_000))
+_ASCII = np.frombuffer(b'ACGT', np.uint8)
+
+
+def _fasta_lines(codes: np.ndarray, width: int = 60) -> np.ndarray:
+    """ASCII bytes of ``codes`` (0-3) in lines of ``width``, each ending
+    in a newline."""
+    n = len(codes)
+    rows = -(-n // width)
+    text = np.empty(rows * width, np.uint8)
+    text[:n] = _ASCII[codes]
+    buf = np.full((rows, width + 1), ord('\n'), np.uint8)
+    buf[:, :width] = text.reshape(rows, width)
+    out = buf.reshape(-1)
+    if n % width:                  # the short last line
+        out = np.concatenate([out[:(rows - 1) * (width + 1) + n % width],
+                              out[-1:]])
+    return out
+
+
+def make_grch38_layout_dataset(root: str, n_reads: int = 10_000,
+                               n_groups: int = 20,
+                               lengths=GRCH38) -> tuple[str, str, str]:
+    """Write ``{root}/ref.fa`` (contigs ``lengths``, GRCh38's by default,
+    seeded random bases, one contig generated at a time; a test passes
+    shorter ones that still hold the reads' segments),
+    ``{root}/mask.bed`` (GRCH38_MASK) and ``{root}/reads/b0.fastq``: read
+    ``r{i}`` is the 21q1 target, chr1[1.0 M, +800), chrX[600_000 +
+    (i % n_groups) * span, +1000), chr1[1.2 M, +800) and the reverse
+    complement of the 17p6 target, every segment inside the mask.
+    Returns (reference path, FASTQ folder, mask path)."""
+    rng = np.random.default_rng(38)
+    names = [n for n, _ in lengths]
+    span = group_span(dict(lengths)['chrX'], n_groups)
+    keep = {'chr1': (1_000_000, 1_200_800),
+            'chrX': (600_000, 600_000 + n_groups * span + 1000)}
+    held = {}
+    ref_path = os.path.join(root, 'ref.fa')
+    with open(ref_path, 'wb') as fh:
+        for name, n in lengths:
+            codes = rng.integers(0, 4, n, dtype=np.uint8)
+            if name in keep:
+                lo, hi = keep[name]
+                held[name] = (lo, codes[lo:hi].copy())
+            fh.write(f'>{name}\n'.encode())
+            fh.write(_fasta_lines(codes))
+            del codes
+    mask_path = os.path.join(root, 'mask.bed')
+    with open(mask_path, 'w') as fh:
+        for chrom, lo, hi in GRCH38_MASK:
+            if chrom in names:
+                fh.write(f'{chrom}\t{lo}\t{hi}\n')
+    panel = load_panel().subset(['21q1', '17p6'])
+    t21 = panel.targets['21q1']
+    t17rc = revcomp_str(panel.targets['17p6'])
+
+    def sub(chrom, pos, n):
+        lo, codes = held[chrom]
+        return decode(codes[pos - lo:pos - lo + n])
+
+    fq_dir = os.path.join(root, 'reads')
+    os.makedirs(fq_dir, exist_ok=True)
+    with open(os.path.join(fq_dir, 'b0.fastq'), 'w',
+              buffering=1 << 22) as fh:
+        for i in range(n_reads):
+            seq = (t21 + sub('chr1', 1_000_000, 800)
+                   + sub('chrX', 600_000 + (i % n_groups) * span, 1000)
+                   + sub('chr1', 1_200_000, 800) + t17rc)
+            fh.write(f'@r{i}\n{seq}\n+\n{"I" * len(seq)}\n')
+    return ref_path, fq_dir, mask_path
+
+
+def make_masked_dataset(root: str) -> tuple[str, str, str, str]:
+    """Write ``{root}/ref.fa`` (chrA, 300 kbp of seeded random bases),
+    ``{root}/mask.bed`` (chrA 100,000-140,000), ``{root}/regions.bed``
+    (chrA 110,000-130,000) and ``{root}/reads/b{0,1}.fastq``, three reads
+    each of the 21q1 target, chrA[115,000, +1,200) and the reverse
+    complement of the 17p6 target.  Returns (reference path, FASTQ
+    folder, mask path, regions path)."""
+    rng = np.random.default_rng(99)
+    chrA = rng.integers(0, 4, size=300_000).astype(np.uint8)
+    ref_path = os.path.join(root, 'ref.fa')
+    with open(ref_path, 'w') as fh:
+        fh.write('>chrA\n' + decode(chrA) + '\n')
+    mask_path = os.path.join(root, 'mask.bed')
+    with open(mask_path, 'w') as fh:
+        fh.write('chrA\t100000\t140000\n')
+    regions_path = os.path.join(root, 'regions.bed')
+    with open(regions_path, 'w') as fh:
+        fh.write('chrA\t110000\t130000\n')
+    panel = load_panel().subset(['21q1', '17p6'])
+    seq = (panel.targets['21q1'] + decode(chrA[115_000:116_200])
+           + revcomp_str(panel.targets['17p6']))
+    fq_dir = os.path.join(root, 'reads')
+    os.makedirs(fq_dir, exist_ok=True)
+    for f in range(2):
+        with open(os.path.join(fq_dir, f'b{f}.fastq'), 'w') as fh:
+            for i in range(3):
+                fh.write(f'@f{f}r{i}\n{seq}\n+\n{"I" * len(seq)}\n')
+    return ref_path, fq_dir, mask_path, regions_path
 
 
 if __name__ == '__main__':

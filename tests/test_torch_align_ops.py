@@ -3,6 +3,8 @@ forward + reverse score extension, seeding, selection, the device index
 and align_batch itself.  All integer or integer-valued float32 results, so
 every comparison is exact."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -186,7 +188,8 @@ def test_device_index_matches_jax(which, ref_and_index, repetitive_ref):
     ref, sidx = ref_and_index if which == 'random' else repetitive_ref
     acfg = AlignConfig()
     genome32, counts_j, pos_j = jalign._device_arrays(ref, sidx)
-    didx = talign.device_index(ref, sidx, CPU, acfg)
+    (didx,) = talign.device_index(ref, sidx, CPU, acfg)
+    assert didx.ref is ref and didx.contig_base == 0
     words = np.asarray(genome32).view(np.uint8)
     np.testing.assert_array_equal(words[:len(ref.codes)],
                                   didx.genome.numpy())
@@ -267,12 +270,162 @@ def test_mapq_model_matches_scalar_reference():
     np.testing.assert_array_equal(got, want)
 
 
-def test_sharded_index_is_refused():
-    ref = _mk_ref(np.random.default_rng(0), [3000, 3000])
-    sidx = build_seed_index(ref, k=11, max_shard_bases=4000)
-    assert sidx.shards
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        talign.device_index(ref, sidx, CPU)
+def test_device_index_per_shard():
+    """One device index per shard, each with its contig base, genome,
+    tables and its own occurrence cap, as fslr_tpu uploads them."""
+    ref = _mk_ref(np.random.default_rng(0), [12000, 3000, 3000],
+                  repeat=(300, 20))
+    sidx = build_seed_index(ref, k=11, max_shard_bases=12500)
+    didx = talign.device_index(ref, sidx, CPU)
+    assert len(didx) == len(sidx.shards) == 2
+    for d, sh in zip(didx, sidx.shards):
+        assert d.ref is sh.ref and d.contig_base == sh.contig_base
+        genome32, counts_j, pos_j = jalign._device_arrays(sh.ref, sh.sidx)
+        words = np.asarray(genome32).view(np.uint8)
+        np.testing.assert_array_equal(words[:len(sh.ref.codes)],
+                                      d.genome.numpy())
+        np.testing.assert_array_equal(np.asarray(counts_j), d.counts.numpy())
+        np.testing.assert_array_equal(np.asarray(pos_j), d.positions.numpy())
+        assert d.occ_cap == jalign._occ_cap(sh.sidx, AlignConfig())
+    assert len({d.occ_cap for d in didx}) == 2     # the repeat's shard
+
+
+def _sharded_scenario():
+    """tests/test_align.py::test_sharded_index_matches_unsharded: three
+    contigs, shards of at most 25,000 bases; a read split across chr1 and
+    the reverse strand of chr3, and an exact one."""
+    ref = _mk_ref(np.random.default_rng(77), [20000, 20000, 20000])
+    reads = [decode(ref.codes[2000:2800])
+             + revcomp_str(decode(ref.codes[45000:45900])),
+             decode(ref.codes[41000:42200])]
+    return ref, build_seed_index(ref, k=11, max_shard_bases=25000), reads
+
+
+ALN_FIELDS = ('read_idx', 'chrom_idx', 'rstart', 'rend', 'strand_rev',
+              'qstart_o', 'qend_o', 'qlen', 'score', 'mapq', 'is_primary',
+              'overlaps_region')
+
+
+def _assert_alignments_equal(want, got, exact):
+    assert len(got) == len(want)
+    for f in ALN_FIELDS:
+        np.testing.assert_array_equal(getattr(want, f), getattr(got, f),
+                                      err_msg=f)
+        assert getattr(want, f).dtype == getattr(got, f).dtype, f
+    if exact:
+        assert got.cigar_lists() == want.cigar_lists()
+
+
+@pytest.mark.parametrize('exact', [False, True], ids=['approx', 'exact'])
+def test_sharded_align_batch_matches(exact):
+    ref, sidx, reads = _sharded_scenario()
+    assert len(sidx.shards) == 3
+    config = PipelineConfig(exact_cigars=exact)
+    want = jalign.align_batch(reads, ref, sidx, config, backend='jax')
+    got = talign.align_batch(reads, ref,
+                             talign.device_index(ref, sidx, CPU),
+                             port_config(config))
+    _assert_alignments_equal(want, got, exact)
+    assert {ref.names[c] for c in got.chrom_idx} == {'chr1', 'chr3'}
+
+
+def test_sharded_align_batch_without_chain_filter():
+    """With chain_drop_ratio 0 the port's sharded path keeps every band and
+    equals the unsharded index's alignments.  fslr_tpu's sharded path
+    raises there (ROADMAP.md section 3): its chain filter returns no mask,
+    np.flatnonzero(None) empties the candidates and sid[None] gains an
+    axis, so a shard's row indices point past them."""
+    ref, sidx, reads = _sharded_scenario()
+    config = PipelineConfig(exact_cigars=False)
+    config = config.replace(align=dataclasses.replace(config.align,
+                                                      chain_drop_ratio=0.0))
+    want = jalign.align_batch(reads, ref, build_seed_index(ref, k=11),
+                              config, backend='jax')
+    got = talign.align_batch(reads, ref, talign.device_index(ref, sidx, CPU),
+                             port_config(config))
+
+    def rows(a):
+        return sorted(zip(*(getattr(a, f).tolist() for f in ALN_FIELDS)))
+    assert rows(got) == rows(want) and len(got) >= 3
+    with pytest.raises(IndexError):
+        jalign.align_batch(reads, ref, sidx, config, backend='jax')
+
+
+def _motif_scenario():
+    """Three 20 kbp contigs (shards of at most 25,000 bases), each holding
+    ten copies of one 24 bp motif, so that its k-mers pass every shard's
+    occurrence cap and the unsharded one's; 20 reads of 800 bases of chr1,
+    80 random ones, the motif and 80 random ones."""
+    rng = np.random.default_rng(5)
+    parts = [random_seq(rng, 20000) for _ in range(3)]
+    motif = random_seq(rng, 24)
+    for p in parts:
+        for c in range(10):
+            p[3000 + 500 * c:3024 + 500 * c] = motif
+    lengths = np.full(3, 20000, np.int64)
+    ref = Reference(names=['chr1', 'chr2', 'chr3'], lengths=lengths,
+                    offsets=np.concatenate([[0], np.cumsum(lengths)]),
+                    codes=np.concatenate(parts))
+    reads = [decode(ref.codes[12000 + 100 * i:12800 + 100 * i])
+             + decode(random_seq(rng, 80)) + decode(motif)
+             + decode(random_seq(rng, 80)) for i in range(20)]
+    return ref, reads
+
+
+def test_shards_move_short_anchors_as_in_fslr_tpu():
+    """Seeding samples at most C of a k-mer's positions, per shard, so a
+    sharded index seeds a repeat's copies otherwise than the unsharded
+    one: fslr_tpu's sharded and unsharded align_batch differ in the
+    motif's short anchors and agree in every alignment of >= 50 bp, and
+    the port's give the same rows as fslr_tpu's with either index.  This
+    is why chip_smoke.py holds the 2-shard align_batch to the unsharded
+    one in alignments of >= 50 bp only."""
+    ref, reads = _motif_scenario()
+    config = PipelineConfig(exact_cigars=True)
+    rows = []
+    for cap in (10 ** 9, 25000):
+        sidx = build_seed_index(ref, k=11, max_shard_bases=cap)
+        assert len(sidx.shards or [sidx]) == (1 if cap > 10 ** 5 else 3)
+        want = jalign.align_batch(reads, ref, sidx, config, backend='jax')
+        got = talign.align_batch(reads, ref,
+                                 talign.device_index(ref, sidx, CPU),
+                                 port_config(config))
+        _assert_alignments_equal(want, got, True)
+        rows.append(set(zip(*(getattr(got, f).tolist()
+                              for f in ALN_FIELDS),
+                          map(tuple, got.cigar_lists()))))
+    n = ALN_FIELDS.index('rstart')
+    long = [{r for r in rs if r[n + 1] - r[n] + 1 >= 50} for rs in rows]
+    assert long[0] == long[1] and len(long[0]) >= 20
+    assert rows[0] != rows[1]
+    assert all(r[n + 1] - r[n] + 1 < 50 for r in rows[0] ^ rows[1])
+
+
+def test_masked_align_batch_matches():
+    """Masked candidates are pooled after renaming their contigs; those on
+    a contig the reference lacks are dropped.  The masked reference of a
+    sharded one is a reference of its own."""
+    ref, sidx, reads = _sharded_scenario()
+    lo, hi = 1500, 3200
+    parts = {'chr1': np.concatenate([np.full(lo - 1, 4, np.uint8),
+                                     ref.codes[lo:hi]]),
+             'chrZ': ref.codes[41000:43000]}
+    lengths = np.array([len(p) for p in parts.values()], np.int64)
+    mref = Reference(names=list(parts), lengths=lengths,
+                     offsets=np.concatenate([[0], np.cumsum(lengths)]),
+                     codes=np.concatenate(list(parts.values())))
+    msidx = build_seed_index(mref, k=11)
+    config = PipelineConfig()
+    want = jalign.align_batch(reads, ref, sidx, config, backend='jax',
+                              masked=(mref, msidx))
+    got = talign.align_batch(
+        reads, ref, talign.device_index(ref, sidx, CPU), port_config(config),
+        masked=(mref, talign.device_index(mref, msidx, CPU)))
+    _assert_alignments_equal(want, got, True)
+    plain = talign.align_batch(reads, ref,
+                               talign.device_index(ref, sidx, CPU),
+                               port_config(config))
+    assert len(got) >= len(plain)
 
 
 @pytest.mark.parametrize('scores,ok', [

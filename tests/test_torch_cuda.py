@@ -517,3 +517,73 @@ def test_slice_card_equals_cpu(card, tmp_path, exact, consensus):
         with open(bases[0] + bam, 'rb') as a, \
                 open(bases[1] + bam, 'rb') as b:
             assert gzip.decompress(a.read()) == gzip.decompress(b.read())
+
+
+@pytest.mark.parametrize('cap', [10 ** 9, 9000, 5000], ids=['1', '2', '3'])
+def test_device_build_equals_cpu_build(card, cap):
+    """The seed index built on the card equals the CPU build and this
+    repo's numpy checker (chip_smoke.numpy_index), with N bases, contig
+    boundaries and contigs shorter than k, in 1, 2 and 3 shards."""
+    from fslr_tpu_torch.index.reference import Reference, build_seed_index
+    rng = np.random.default_rng(5)
+    parts = [rng.integers(0, 5, n).astype(np.uint8)
+             for n in (4000, 3, 4500, 10, 4000)]
+    lengths = np.array([len(p) for p in parts], np.int64)
+    ref = Reference(names=[f'c{i}' for i in range(len(parts))],
+                    lengths=lengths,
+                    offsets=np.concatenate([[0], np.cumsum(lengths)]),
+                    codes=np.concatenate(parts))
+    got = build_seed_index(ref, 11, card, cap)
+    want = build_seed_index(ref, 11, torch.device('cpu'), cap)
+    shards = chip_smoke._shards(ref, got)
+    assert len(shards) == {10 ** 9: 1, 9000: 2, 5000: 3}[cap]
+    for (sref, a, base), (_, b, base_b) in zip(shards,
+                                               chip_smoke._shards(ref, want)):
+        assert base == base_b
+        counts, positions = chip_smoke.numpy_index(sref.codes, sref.offsets,
+                                                   11)
+        for x in (a, b):
+            np.testing.assert_array_equal(x.counts, counts)
+            np.testing.assert_array_equal(x.positions, positions)
+
+
+def test_sharded_align_batch_card_equals_cpu(card, tmp_path):
+    """align_batch with a 2-shard index: card == CPU, every column and
+    CIGAR, and equal to the unsharded index's alignments."""
+    from fslr_tpu_torch.index.reference import build_seed_index, \
+        load_reference
+    from fslr_tpu_torch.io.fastq import read_reads
+    ref_path, fq = make_dataset(str(tmp_path), 40, 4)
+    ref = load_reference(ref_path)
+    codes = read_reads(os.path.join(fq, 'b0.fastq'))
+    codes = codes.codes_slice(0, codes.n)
+    rows = [chip_smoke._align_rows(
+        ref, build_seed_index(ref, 11, dev, cap), dev, codes)
+        for dev, cap in ((card, 3_000_000), (torch.device('cpu'), 3_000_000),
+                         (card, 10 ** 9))]
+    assert rows[0] == rows[1] == rows[2]
+    assert len(rows[0]) >= 40
+
+
+def test_masked_slice_card_equals_cpu(card, tmp_path):
+    """run_pipeline with reference_mask on the card and on the CPU."""
+    from fslr_tpu_torch.pipeline import run_pipeline
+    ref, fq = make_dataset(str(tmp_path), 30, 3)
+    mask = tmp_path / 'mask.bed'
+    mask.write_text(chip_smoke.CROSS_MASK)
+    bases = []
+    for dev in (card, torch.device('cpu')):
+        out = str(tmp_path / dev.type)
+        run_pipeline(PipelineConfig(name='D', out=out, ref=ref,
+                                    primers=('21q1', '17p6'), basecalled=fq,
+                                    skip_clustering=True,
+                                    reference_mask=str(mask)), dev)
+        bases.append(os.path.join(out, 'D'))
+        assert not [n for n in os.listdir(out) if '_temp_ref' in n]
+    for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):
+        with open(bases[0] + suffix, 'rb') as a, \
+                open(bases[1] + suffix, 'rb') as b:
+            assert a.read() == b.read(), suffix
+    with open(bases[0] + '.bwa_dodi.bam', 'rb') as a, \
+            open(bases[1] + '.bwa_dodi.bam', 'rb') as b:
+        assert gzip.decompress(a.read()) == gzip.decompress(b.read())

@@ -96,13 +96,15 @@ def test_second_runs_equal_across_packages(cache_runs):
 def test_empty_cache_is_rebuilt_as_fslr_tpu_rebuilds_it(tmp_path):
     ref, _ = _build(str(tmp_path))
     k = PipelineConfig().align.seed_k
-    want = _load_indexed(ref, k)[1]                  # builds, writes
+    want = _load_indexed(ref, k, torch.device('cpu'))[1]   # builds, writes
     got = {}
-    for pkg, load in (('torch', _load_indexed), ('jax', jax_load_indexed)):
+    loaders = (('torch', lambda: _load_indexed(ref, k, torch.device('cpu'))),
+               ('jax', lambda: jax_load_indexed(ref, k)))
+    for pkg, load in loaders:
         _corrupt(ref, 'empty')
         err = io.StringIO()
         with contextlib.redirect_stderr(err):
-            got[pkg] = load(ref, k)[1]
+            got[pkg] = load()[1]
         assert 'unreadable' in err.getvalue(), pkg
     for sidx in got.values():
         np.testing.assert_array_equal(sidx.counts, want.counts)

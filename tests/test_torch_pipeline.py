@@ -147,9 +147,8 @@ def test_timings_written(golden_runs):
 
 
 @pytest.mark.parametrize('kw', [
-    dict(reference_mask='mask.bed'), dict(skip_alignment=True),
-    dict(n_processes=2)],
-    ids=['reference_mask', 'skip_alignment', 'n_processes'])
+    dict(skip_alignment=True), dict(n_processes=2)],
+    ids=['skip_alignment', 'n_processes'])
 def test_settings_outside_the_slice_raise(tmp_path, kw):
     config = PipelineConfig(name='X', out=str(tmp_path / 'out'),
                             skip_clustering=True, exact_cigars=False)
