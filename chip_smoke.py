@@ -70,7 +70,19 @@ Phases (each raises on failure; the exit code is then not 0):
    ``load_index`` split into parse, device build per shard, cache write
    or read and upload, each shard's device bytes and peak device memory,
    and times load_reference's bulk FASTA parse against a parse record by
-   record (read_fastx + encode), which must give the same codes.
+   record (read_fastx + encode), which must give the same codes;
+9. cluster-1m (run right after phase 3, before the later phases hold
+   device memory): the scale path of breakpoint clustering
+   (ops/encounters.py, capwalk.resolve_device) through query_graph and
+   get_subgraphs on the card, on tools/synth's cluster-scale data
+   (999,600 reads in 1,428 groups of 700, one interior interval a read,
+   ~7.0e8 encounters); it must run in-HBM, give 1,428 clusters, and the
+   edges of 5 groups spread over the pair keys must equal, in order, the
+   host path's on each group alone.  It prints a JSON line with the wall
+   time, reads/s, each part's seconds, the encounter, pair, entry and
+   edge counts and the peak device memory.  Then 99,400 reads clustered
+   in-HBM and spilled to the host must agree, and 19,600 reads on the
+   card and on the CPU (both above device_enum_min_encounters).
 
 The line before the last is a JSON object with each kernel's launches on
 the consensus run (``launches``) and on human-3g's cold run
@@ -82,6 +94,12 @@ and tb kernels on every launch of the slice and consensus runs,
 
     python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
     chip_smoke.sweep_layouts(torch.device('cuda'))"
+
+``cluster_peak`` gives the in-HBM clustering path's peak device memory
+at another read count:
+
+    python3 -c "import torch, chip_smoke as c;
+    c.cluster_peak(torch.device('cuda'), 2_000_000)"
 
 ``own_launches`` times every kernel on those runs' own launches and saves
 the inputs of the SW, tb and prof launches, on which ``time_launches``
@@ -96,6 +114,7 @@ inside the checkout:
 """
 
 import csv
+import dataclasses
 import gzip
 import json
 import os
@@ -120,6 +139,10 @@ CONS_REF_BP = 2_000_000                   # its default reference
 SUBTELOMERE = 500_000
 CROSS_READS = 200
 CROSS_GROUPS = 10
+# cluster-1m: tools/synth's cluster-scale data, groups of 700 (999,600
+# reads in 1,428 groups), then the spill and card-vs-CPU checks
+CLUSTER_READS, CLUSTER_GROUP, VERIFY_GROUPS = 1_000_000, 700, 5
+SPILL_READS, CROSS_CLUSTER_READS = 100_000, 20_000
 AS_SAMPLE = 1_000
 CLIPS_ONLY_MAX = 0.02   # share of records with no M/I/D (500 of 44,500 in phase 4)
 INDEX_SPLIT_BASES = 60_000_000      # slice-10k's reference in 2 shards
@@ -1238,6 +1261,153 @@ def _index_bytes(ref_path, lengths, k) -> list:
     return out
 
 
+def _query_graph(data, dev, cfg, stats=None):
+    from fslr_tpu_torch.stages.cluster import query_graph
+    return query_graph(data, cfg.overlap, list(cfg.jaccard_cutoffs),
+                       cfg.edge_threshold, cfg.qlen_diff,
+                       cfg.n_alignment_diff, cfg, dev, stats)
+
+
+def _graph_rows(graph) -> tuple:
+    """(match rows sorted, edges in order, node order) of a query_graph
+    result."""
+    match, edges, node_pos = graph
+    return sorted(match), edges, list(node_pos.items())
+
+
+def run_cluster_scale(dev, smi: str) -> dict:
+    """cluster-1m: the scale path of breakpoint clustering
+    (ops/encounters.py, capwalk.resolve_device) through query_graph and
+    get_subgraphs on the card, on tools/synth's cluster-scale data
+    (CLUSTER_READS reads in groups of CLUSTER_GROUP, seed 7,
+    exact_cap_replay off).  It must take the in-HBM path and give one
+    cluster a group, and the edges of VERIFY_GROUPS groups spread over the
+    pair keys must equal, in order, the host path's on each group alone.
+    Then SPILL_READS reads clustered in-HBM and spilled to the host must
+    agree, and CROSS_CLUSTER_READS reads on the card and on the CPU (both
+    above device_enum_min_encounters).  Prints the wall time, reads/s,
+    each part's seconds, the sizes and the peak device memory; returns
+    them."""
+    from fslr_tpu_torch.config import ClusterConfig
+    from fslr_tpu_torch.stages.cluster import get_subgraphs
+    from fslr_tpu_torch.tools.synth import make_cluster_scale_data
+    cfg = ClusterConfig(exact_cap_replay=False)
+    t0 = time.perf_counter()
+    data = make_cluster_scale_data(CLUSTER_READS, CLUSTER_GROUP, seed=7)
+    data_s = time.perf_counter() - t0
+    n_groups = CLUSTER_READS // CLUSTER_GROUP
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    graph = _query_graph(data, dev, cfg, stats)
+    t1 = time.perf_counter()
+    subgraphs = get_subgraphs(graph[1], graph[2], dev)
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() - base
+    if stats['path'] != 'in-HBM':
+        raise AssertionError(f'cluster-1m took the {stats["path"]} path')
+    if len(subgraphs) != n_groups or \
+            {len(c) for c in subgraphs} != {CLUSTER_GROUP}:
+        raise AssertionError(f'cluster-1m: {len(subgraphs)} clusters, '
+                             f'{n_groups} groups planted')
+    # groups are 5 kb apart, so a group's walk depends on its entries
+    # only: its edges (in order) must be the host path's on it alone
+    vg = {int(g) for g in np.linspace(0, n_groups - 1, VERIFY_GROUPS)}
+    by_group: dict = {g: [] for g in vg}
+    for a, b in graph[1]:
+        if a // CLUSTER_GROUP in vg:
+            by_group[a // CLUSTER_GROUP].append((a, b))
+    host = dataclasses.replace(cfg, device_enum_min_encounters=1 << 62)
+    for g in sorted(vg):
+        rows = [it for it in data if it.qname // CLUSTER_GROUP == g]
+        want = _query_graph(rows, dev, host)[1]
+        if not want or want != by_group[g]:
+            raise AssertionError(f'cluster-1m group {g}: {len(want)} edges '
+                                 f'on its own, {len(by_group[g])} at scale')
+    wall = t2 - t0
+    phases = ('enum_merge_s', 'gate_order_s', 'value_replay_s', 'emit_s')
+    out = dict(
+        phase='cluster-1m', reads=len(data), groups=n_groups,
+        device=smi.splitlines()[0], wall_s=wall, reads_per_s=len(data) / wall,
+        data_build_s=data_s,
+        prepare_s=(t1 - t0) - sum(stats[k] for k in phases),
+        **{k: stats[k] for k in phases}, components_s=t2 - t1,
+        encounters=stats['encounters'], pairs=stats['pairs'],
+        entries=stats['entries'], edges=stats['edges'],
+        clusters=len(subgraphs), verified_groups=len(vg),
+        peak_device_bytes=peak, peak_bytes_per_pair=peak / stats['pairs'],
+        path=stats['path'])
+    print(json.dumps(out))
+    del graph, subgraphs, data, by_group
+
+    # in-HBM == spill
+    data = make_cluster_scale_data(SPILL_READS, CLUSTER_GROUP, seed=7)
+    got = {}
+    for tag, c in (('in-HBM', cfg), ('spill', dataclasses.replace(
+            cfg, enum_spill_min_encounters=1))):
+        st: dict = {}
+        t0 = time.perf_counter()
+        got[tag] = _graph_rows(_query_graph(data, dev, c, st))
+        if st['path'] != tag:
+            raise AssertionError(f'spill check: {st["path"]} for {tag}')
+        print(f'cluster {len(data)} reads {tag}: '
+              f'{time.perf_counter() - t0:.3f} s, {st["entries"]} entries, '
+              f'{st["edges"]} edges')
+    if got['in-HBM'] != got['spill']:
+        raise AssertionError('cluster: in-HBM and spill differ')
+
+    # card == CPU, both above device_enum_min_encounters
+    data = make_cluster_scale_data(CROSS_CLUSTER_READS, CLUSTER_GROUP,
+                                   seed=7)
+    got = []
+    for d in (dev, torch.device('cpu')):
+        st = {}
+        t0 = time.perf_counter()
+        got.append(_graph_rows(_query_graph(data, d, cfg, st)))
+        if st['path'] != 'in-HBM' or \
+                st['encounters'] < cfg.device_enum_min_encounters:
+            raise AssertionError(f'card vs CPU: {st}')
+        print(f'cluster {len(data)} reads on {d.type}: '
+              f'{time.perf_counter() - t0:.3f} s, {st["encounters"]} '
+              f'encounters, {st["edges"]} edges')
+    if got[0] != got[1]:
+        raise AssertionError('cluster: the card and the CPU differ')
+    torch.cuda.empty_cache()
+    return out
+
+
+def cluster_peak(dev, n_reads: int) -> dict:
+    """Peak device memory of the in-HBM scale path of clustering on
+    ``n_reads`` reads of tools/synth's cluster-scale data (groups of
+    CLUSTER_GROUP), through query_graph; not run by default:
+
+        python3 -c "import torch, chip_smoke as c;
+        c.cluster_peak(torch.device('cuda'), 2_000_000)"
+    """
+    from fslr_tpu_torch.config import ClusterConfig
+    from fslr_tpu_torch.tools.synth import make_cluster_scale_data
+    cfg = ClusterConfig(exact_cap_replay=False,
+                        enum_spill_min_encounters=1 << 62)
+    data = make_cluster_scale_data(n_reads, CLUSTER_GROUP, seed=7)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    _query_graph(data, dev, cfg, stats)
+    peak = torch.cuda.max_memory_allocated() - base
+    out = dict(reads=len(data), wall_s=time.perf_counter() - t0,
+               peak_device_bytes=peak,
+               peak_bytes_per_pair=peak / max(stats['pairs'], 1), **stats)
+    print(json.dumps(out))
+    torch.cuda.empty_cache()
+    return out
+
+
 def run_human(dev, root) -> dict:
     """human-3g: 10,000 reads against a GRCh38-size reference (24
     chromosomes at GRCh38's lengths, 3.09 Gbp, 4 index shards) with
@@ -1574,10 +1744,11 @@ def sweep_layouts(dev, reps: int = 3) -> list:
 
 
 def main():
-    preflight()
+    smi = preflight()
     dev = torch.device('cuda')
     build_kernels()
     checks = check_kernels(dev)
+    run_cluster_scale(dev, smi)
     with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root:
         check_index(dev, *run_slice(dev, root))
         launches = run_consensus(dev, root)

@@ -145,23 +145,24 @@ class ClusterConfig:
     # exactly over the full multi-occurrence stream; the device/spill
     # scale paths always use the closed form (see ops/capwalk.py).
     exact_cap_replay: bool = True
-    # encounter streams above this size enumerate + min-reduce ON DEVICE
-    # (ops/encounters.py) instead of host numpy; the capped-traversal
-    # replay (ops/capwalk.py) then values entries without them ever
-    # leaving HBM.  Below it the host path wins (device round-trips
-    # dominate tiny streams).
+    # encounter streams of this size and above take the scale path: the
+    # encounters are enumerated and reduced to pairs on the device
+    # (ops/encounters.py) and the capped walk is valued and replayed there
+    # (ops/capwalk.py).  Below it the host path is exact under capping.
     device_enum_min_encounters: int = 4_000_000
-    # encounters expanded per device slice (bounds transient HBM: a slice
-    # holds ~10 int64/encounter temporaries during the sort)
+    # encounters expanded per device slice (bounds a slice's temporaries)
     enum_slice_cap: int = 32 * 1024 * 1024
-    # per-slice uniques accumulate on device and re-dedup when this many
-    # are held (bounds the incremental-merge sort size)
+    # slice results merge into the accumulator once this many encounters
+    # are held (or three slices)
     enum_merge_cap: int = 96 * 1024 * 1024
-    # encounter streams above this spill pair state to host RAM and
-    # process pk-range buckets on device (ops/encounters.py spill path):
-    # one device array cannot exceed 2 GiB on TPU, and sort transients
-    # exhaust HBM well before that
-    enum_spill_min_encounters: int = 1 << 27
+    # encounter streams above this size keep their pairs in host memory
+    # (the spill path of ops/encounters.py), the others on the device.
+    # Set for an 80 GB card: the in-HBM path's peak is 52.4 B a read pair
+    # (chip_smoke.run_cluster_scale and cluster_peak on an H100 80GB at
+    # 1.0M and 2.0M reads; PERF.md section 6), and a pair is met at least
+    # twice (once from each read), so 2^31 encounters stay under ~56 GB.
+    # No artifact depends on it.
+    enum_spill_min_encounters: int = 1 << 31
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,22 +23,25 @@ columns in file order, typed as pandas would read ``mappings.bed``
     components, size 1); representatives are the rows of the read with the
     highest mean alignment score per cluster (first such row on ties).
 
-At ``device_enum_min_encounters`` encounters and above the JAX package
-enumerates on the device (ops/encounters.py); that path is not ported and
-raises NotImplementedError here.
+At ``device_enum_min_encounters`` encounters and above, the scale path
+enumerates the encounters and reduces them to pairs on the device
+(ops/encounters.py) and values and replays the capped walk there
+(ops/capwalk.resolve_device), in its closed form even where a query caps.
 """
 
 from __future__ import annotations
 
 import csv
 import dataclasses
+import sys
+import time
 from collections import namedtuple
 
 import numpy as np
 import torch
 
 from fslr_tpu_torch.config import ClusterConfig
-from fslr_tpu_torch.ops import capwalk, components, jaccard
+from fslr_tpu_torch.ops import capwalk, components, encounters, jaccard
 
 # max encounters materialized per enumeration slice (see query_graph)
 ENCOUNTER_SLICE_CAP = 32 * 1024 * 1024
@@ -239,9 +242,12 @@ class _ChromIndex:
 
 def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
                 qlen_diff, n_aln_diff, cfg: ClusterConfig,
-                device: torch.device):
+                device: torch.device, stats: dict | None = None):
     """Returns (match set of (query1, query2, jaccard), edges in add order,
-    node first-seen order) of the reference traversal.
+    node first-seen order) of the reference traversal.  From
+    ``cfg.device_enum_min_encounters`` encounters on it takes the scale
+    path (:func:`_query_graph_device`), which fills ``stats`` with its
+    path, sizes and phase seconds.
 
       1. the encounter stream is enumerated in traversal order (query
          first-seen order, interval list order, ascending-start neighbour
@@ -324,15 +330,6 @@ def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
         jobs.append((rid_arr, irk_arr, np.asarray(starts),
                      np.asarray(ends), lo, counts, ccum))
 
-    if total_enc >= cfg.device_enum_min_encounters \
-            and trav_scale < (1 << 30) \
-            and (chrom_a.max(initial=0) < (1 << 16)):
-        raise NotImplementedError(
-            f'{total_enc} interval encounters >= device_enum_min_encounters '
-            f'({cfg.device_enum_min_encounters}): fslr_tpu_torch does not '
-            'run this yet: ROADMAP.md, port queue item "device encounter '
-            'enumeration (ops/encounters.py, capwalk scale path)"')
-
     dev_arrays = jaccard.upload_interval_arrays(
         chrom_a, start_a, end_a, size_a, np.minimum(lens_a, M), device)
     host_arrays = (chrom_a, start_a, end_a, size_a, lens_a)
@@ -349,6 +346,18 @@ def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
                 as_tuples(query_intervals[qnames_order[int(eos[r])]]),
                 overlap_cutoff)
         return jh, nh
+
+    if total_enc >= cfg.device_enum_min_encounters \
+            and trav_scale < (1 << 30) \
+            and (chrom_a.max(initial=0) < (1 << 16)):
+        # the scale path; trav_scale >= 2^30 would overflow its 31-bit
+        # traversal state and chromosome ids >= 2^16 its packed interval
+        # tables, so such datasets stay on the host path
+        return _query_graph_device(
+            jobs, R, max_itv, max_nc, qlen2_arr, naln_arr, overlap_cutoff,
+            jaccard_cutoffs, edge_threshold, qlen_diff, n_aln_diff, cfg,
+            qnames_order, over, dev_arrays, M, host_value, host_arrays,
+            device, {} if stats is None else stats)
 
     # bounded-memory enumeration: interval ranges in slices of at most
     # ENCOUNTER_SLICE_CAP encounters, each reduced to per-pair minima
@@ -675,6 +684,62 @@ def _emit_from_pairs(eq_e, eo_e, j_e, qnames_order):
             node_pos[name_b] = len(node_pos)
         edges.append((name_a, name_b))
     return match, edges, node_pos
+
+
+def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
+                        overlap_cutoff, jaccard_cutoffs, edge_threshold,
+                        qlen_diff, n_aln_diff, cfg: ClusterConfig,
+                        qnames_order, over, dev_arrays, M, host_value,
+                        host_arrays, device: torch.device, stats: dict):
+    """The scale path of query_graph: the encounter stream is enumerated
+    and reduced to pairs on ``device`` (ops/encounters.py); the entries
+    stay there, or in host memory above ``cfg.enum_spill_min_encounters``
+    encounters, and the capped walk is valued and replayed in closed form
+    (ops/capwalk.py).  ``stats`` gets the build's path and sizes and the
+    seconds of enumeration + merge, gate + order, valuing + replay and
+    emission."""
+    ents = encounters.build_entries(
+        [encounters.ChromJob(starts=s, ends=e, lo=lo, ccum=ccum, rid=rid,
+                             irk=irk)
+         for (rid, irk, s, e, lo, counts, ccum) in jobs],
+        R, max_itv, max_nc, qlen2_arr, naln_arr, 1.0 - qlen_diff,
+        1.0 - n_aln_diff, cfg.enum_slice_cap, cfg.enum_merge_cap,
+        cfg.enum_spill_min_encounters, device, stats)
+    t0 = time.perf_counter()
+    bounds = ents.bounds
+    cutoffs = list(jaccard_cutoffs)
+    if isinstance(ents, encounters.HostEntrySet):
+        # the spill path: entries in host memory, valued and replayed in
+        # query-aligned chunks
+        idx_e, eo_e, j_e = capwalk.value_and_replay_host(
+            ents.ei, ents.eo, bounds, dev_arrays, M, overlap_cutoff,
+            cutoffs, edge_threshold, over, host_value, host_arrays)
+    else:
+        idx_e, eo_e, j_e = capwalk.resolve_device(
+            ents.device_buckets(), bounds, max_itv, max_nc, dev_arrays,
+            M, overlap_cutoff, cutoffs, edge_threshold, over, host_value)
+    del ents
+    t1 = time.perf_counter()
+    stats['value_replay_s'] = t1 - t0
+    # the scale path keeps the first-encounter closed form where a query
+    # caps (the exact multi-occurrence walk is the host path's); a query
+    # that emits edge_threshold edges has almost certainly capped
+    if len(idx_e):
+        eq_e = np.searchsorted(bounds, idx_e, side='right') - 1
+        n_cap = int((np.bincount(eq_e, minlength=R)
+                     >= edge_threshold).sum())
+        if n_cap:
+            print(f'note: {n_cap} queries reached the soft edge cap '
+                  f'({edge_threshold}) on the at-scale clustering path; '
+                  f'capped walks use first-encounter edge semantics '
+                  f'(measured against the reference walk in fslr_tpu: '
+                  f'partitions equal on 99.6% of adversarial capped frames, '
+                  f'divergence only splits over-cap-bridged clusters; see '
+                  f'ops/capwalk.py)', file=sys.stderr)
+    out = _emit_outputs(idx_e, eo_e, j_e, bounds, qnames_order)
+    stats['emit_s'] = time.perf_counter() - t1
+    stats['edges'] = len(out[1])
+    return out
 
 
 def get_subgraphs(edges, node_pos, device: torch.device):

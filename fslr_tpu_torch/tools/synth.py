@@ -18,6 +18,10 @@ chrX in chrB's.
 JAX package's pipeline tests: one 300 kbp contig, a mask BED and a regions
 BED inside it, and two FASTQ files of three reads that lie in both.
 
+``make_cluster_scale_data`` gives the clustering stage's input at scale
+without a pipeline run (the data of ``bench.run_cluster_scale``): one
+interior interval a read, in breakpoint groups.
+
     python -m fslr_tpu_torch.tools.synth ROOT N_READS [N_GROUPS]
 """
 
@@ -181,6 +185,26 @@ def make_masked_dataset(root: str) -> tuple[str, str, str, str]:
             for i in range(3):
                 fh.write(f'@f{f}r{i}\n{seq}\n+\n{"I" * len(seq)}\n')
     return ref_path, fq_dir, mask_path, regions_path
+
+
+def make_cluster_scale_data(n_reads: int, group: int = 700, seed: int = 7):
+    """The interval items that stages/cluster.query_graph takes, sorted by
+    start as prepare_data sorts them: ``n_reads // group`` breakpoint
+    groups of ``group`` reads 5 kb apart on chromosome 1 (so
+    ``group * (n_reads // group)`` reads; read r in group r // group),
+    one interior interval a read, its start and end jittered by +-40 bp,
+    qlen2 1,000 and 3 alignments.  The qname is the read id r."""
+    from fslr_tpu_torch.stages.cluster import IntervalItem
+    n_groups = max(1, n_reads // group)
+    rng = np.random.default_rng(seed)
+    gid = np.repeat(np.arange(n_groups, dtype=np.int64), group)[:n_reads]
+    start = 100_000 + gid * 5_000 + rng.integers(-40, 41, len(gid))
+    end = start + 1_000 + rng.integers(-40, 41, len(gid))
+    data = [IntervalItem(1, int(s), int(e), float(e - s), r, 3, 1_000,
+                         int((e - s) // 2 + s), r)
+            for r, (s, e) in enumerate(zip(start, end))]
+    data.sort(key=lambda it: it.start)
+    return data
 
 
 if __name__ == '__main__':

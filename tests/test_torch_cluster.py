@@ -3,6 +3,7 @@ interval soups written as mappings.bed, clustered by both packages; the
 cluster and representative beds must be byte-equal and the components
 (members and order) equal.  Exact: no tolerance."""
 
+import dataclasses
 import os
 
 import numpy as np
@@ -97,9 +98,10 @@ SCENARIOS = {
 }
 
 
-def _run_both(tmp_path, bed_df, cfg):
-    """Write the bed as mappings.bed, cluster it with both packages; return
-    ({suffix: bytes} per package, subgraphs per package)."""
+def _run_both(tmp_path, bed_df, cfg, port_cfg=None):
+    """Write the bed as mappings.bed, cluster it with both packages (the
+    port with ``port_cfg`` where given); return ({suffix: bytes} per
+    package, subgraphs per package)."""
     path = str(tmp_path / 'S.mappings.bed')
     bed_df.to_csv(path, sep='\t', index=False)
     out = {}
@@ -107,7 +109,7 @@ def _run_both(tmp_path, bed_df, cfg):
                                               engine='pyarrow'),
                                   CHR_LEN, cfg)
     tres = tcluster.cluster_stage(tcluster.read_mappings(path), CHR_LEN,
-                                  port_config(cfg), CPU)
+                                  port_config(port_cfg or cfg), CPU)
     assert jres.no_clusters == tres.no_clusters
     if jres.no_clusters:
         return None, (jres.subgraphs, tres.subgraphs)
@@ -169,16 +171,18 @@ def test_no_clusters_as_fslr_tpu(tmp_path, case):
     assert files is None and tsub == jsub
 
 
-def test_device_enumeration_size_raises(tmp_path):
-    """At device_enum_min_encounters the JAX package enumerates on its
-    device; the port raises, naming the ROADMAP item."""
-    path = str(tmp_path / 'S.mappings.bed')
-    _capped_group().to_csv(path, sep='\t', index=False)
-    cfg = port_config(ClusterConfig(device_enum_min_encounters=100))
-    with pytest.raises(NotImplementedError,
-                       match='device encounter enumeration'):
-        tcluster.cluster_stage(tcluster.read_mappings(path), CHR_LEN, cfg,
-                               CPU)
+@pytest.mark.parametrize('store', ['in_hbm', 'spill'])
+def test_device_enumeration_cluster_stage(tmp_path, store):
+    """cluster_stage through the scale path (ops/encounters.py), with the
+    entries on the device and spilled to the host: beds byte-equal to
+    fslr_tpu's device path, and the same components."""
+    cfg = ClusterConfig(device_enum_min_encounters=1)
+    port_cfg = cfg if store == 'in_hbm' else dataclasses.replace(
+        cfg, enum_spill_min_encounters=1)
+    files, (jsub, tsub) = _run_both(tmp_path, _mixed_dataset(), cfg,
+                                    port_cfg)
+    assert tsub == jsub
+    assert files is not None and files['torch'] == files['jax']
 
 
 @pytest.mark.parametrize('seed', [0, 1, 2])

@@ -587,3 +587,70 @@ def test_masked_slice_card_equals_cpu(card, tmp_path):
     with open(bases[0] + '.bwa_dodi.bam', 'rb') as a, \
             open(bases[1] + '.bwa_dodi.bam', 'rb') as b:
         assert gzip.decompress(a.read()) == gzip.decompress(b.read())
+
+
+def _interval_soup(seed, n_reads=300):
+    """Interval items (sorted by start, as prepare_data gives them) of
+    reads with 1-3 interior intervals around four breakpoints on two
+    chromosomes, two reads whose qlen2 ratio is exactly 1 - qlen_diff
+    (2400 / 2500; their n_alignments ratio 3/5 fails), and one read of 35
+    intervals (past the Jaccard table's 32: the exact host mirror)."""
+    from fslr_tpu_torch.stages.cluster import IntervalItem
+    rng = np.random.default_rng(seed)
+    bps = [(1, 2_000_000), (1, 2_000_600), (2, 4_000_000), (1, 7_000_000)]
+    reads = []
+    for r in range(n_reads):
+        segs = []
+        for _ in range(int(rng.integers(1, 4))):
+            c, s = bps[int(rng.integers(0, len(bps)))]
+            s += int(rng.integers(-60, 61))
+            segs.append((c, s, s + 1000 + int(rng.integers(-80, 81))))
+        reads.append((f'R{r}', segs))
+    reads.append(('BL0', [(1, 5_000_000, 5_002_400)]))
+    reads.append(('BL1', [(1, 5_000_000, 5_000_800), (1, 5_000_700, 5_001_500),
+                          (1, 5_001_400, 5_002_300)]))
+    reads.append(('BIG', [(1, 2_000_000 + 20 * k, 2_001_000 + 20 * k)
+                          for k in range(35)]))
+    items = []
+    for name, segs in reads:
+        qlen2 = {'BL0': 2400, 'BL1': 2500}.get(
+            name, sum(e - s for _, s, e in segs))
+        for c, s, e in segs:
+            items.append(IntervalItem(c, s, e, float(e - s), name,
+                                      len(segs) + 2, qlen2,
+                                      (e - s) // 2 + s, len(items)))
+    items.sort(key=lambda it: it.start)
+    return items
+
+
+def _graph(data, dev, **kw):
+    from fslr_tpu_torch.config import ClusterConfig
+    from fslr_tpu_torch.stages.cluster import query_graph
+    cfg = ClusterConfig(device_enum_min_encounters=0, **kw)
+    stats = {}
+    m, e, n = query_graph(data, cfg.overlap, list(cfg.jaccard_cutoffs),
+                          cfg.edge_threshold, cfg.qlen_diff,
+                          cfg.n_alignment_diff, cfg, dev, stats)
+    return (m, e, list(n.items())), stats['path']
+
+
+@pytest.mark.parametrize('case', ['soup', 'soup_capped_small_slices',
+                                  'cluster_scale'])
+def test_scale_path_card_equals_cpu(card, case):
+    """The scale path of clustering (ops/encounters.py, capwalk.
+    resolve_device) on the card, in-HBM and spilled, equals its CPU run:
+    edges in order, node order, match rows."""
+    from fslr_tpu_torch.tools.synth import make_cluster_scale_data
+    kw = {}
+    if case == 'cluster_scale':
+        data = make_cluster_scale_data(5_000)     # 7 groups of 700
+    else:
+        data = _interval_soup(3)
+        if case == 'soup_capped_small_slices':
+            kw = dict(edge_threshold=3, enum_slice_cap=4096,
+                      enum_merge_cap=8192)
+    want, path = _graph(data, torch.device('cpu'), **kw)
+    assert path == 'in-HBM' and len(want[1]) > 100
+    assert _graph(data, card, **kw) == (want, 'in-HBM')
+    assert _graph(data, card, enum_spill_min_encounters=1, **kw) == \
+        (want, 'spill')

@@ -133,9 +133,24 @@ def test_cli_runs_with_jax_pandas_click_blocked(tmp_path):
     assert int(res.stdout.split('CLI_OK')[1]) > 1      # header + rows
 
 
+# defaults the port sets for its card, not the TPU's: the encounter count
+# above which clustering's pairs spill to host memory (80 GB of HBM)
+CARD_DEFAULTS = {'ClusterConfig': {'enum_spill_min_encounters': 1 << 31}}
+
+
+def _card_defaults(cfg) -> dict:
+    """A fslr_tpu config as a dict (nested configs too), with the
+    settings of CARD_DEFAULTS in place of its own."""
+    out = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        out[f.name] = _card_defaults(v) if dataclasses.is_dataclass(v) else v
+    return {**out, **CARD_DEFAULTS.get(type(cfg).__name__, {})}
+
+
 def test_config_defaults_equal_fslr_tpu():
     """Every config dataclass of the port has fslr_tpu's fields and
-    defaults."""
+    defaults, but for the settings of CARD_DEFAULTS."""
     import fslr_tpu.config as jconfig
 
     import fslr_tpu_torch.config as tconfig
@@ -146,8 +161,11 @@ def test_config_defaults_equal_fslr_tpu():
                            and isinstance(v, type))
     for n in names:
         assert dataclasses.asdict(getattr(tconfig, n)()) == \
-            dataclasses.asdict(getattr(jconfig, n)()), n
-    assert port_config(jconfig.PipelineConfig()) == tconfig.PipelineConfig()
+            _card_defaults(getattr(jconfig, n)()), n
+    port = port_config(jconfig.PipelineConfig())
+    assert dataclasses.replace(port, cluster=dataclasses.replace(
+        port.cluster, **CARD_DEFAULTS['ClusterConfig'])) == \
+        tconfig.PipelineConfig()
 
 
 def test_primers_csv_byte_equal():

@@ -12,9 +12,10 @@ import os
 import pytest
 import torch
 
+from fslr_tpu.config import ClusterConfig as JaxClusterConfig
 from fslr_tpu.config import PipelineConfig as JaxPipelineConfig
 from fslr_tpu.pipeline import run_pipeline as jax_run_pipeline
-from fslr_tpu_torch.config import PipelineConfig
+from fslr_tpu_torch.config import ClusterConfig, PipelineConfig
 from fslr_tpu_torch.pipeline import run_pipeline
 from tests.test_golden_snapshot import _build
 from tests.test_torch_pipeline import ARTIFACTS, _bam_records, _read
@@ -28,12 +29,18 @@ def golden_runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp('golden'))
     ref, fq = _build(root)
     bases = {}
-    for tag, kw in (('cluster', {}), ('consensus', dict(run_consensus=True))):
-        for pkg, cls in (('jax', JaxPipelineConfig),
-                         ('torch', PipelineConfig)):
+    # tag -> keywords, given the package's ClusterConfig
+    for tag, kw in (
+            ('cluster', lambda _: {}),
+            ('consensus', lambda _: dict(run_consensus=True)),
+            ('device_cluster', lambda ccls: dict(
+                exact_cigars=False,
+                cluster=ccls(device_enum_min_encounters=1)))):
+        for pkg, cls, ccls in (('jax', JaxPipelineConfig, JaxClusterConfig),
+                               ('torch', PipelineConfig, ClusterConfig)):
             config = cls(name='G', out=os.path.join(root, f'{pkg}_{tag}'),
                          ref=ref, primers=('21q1', '17p6'), basecalled=fq,
-                         **kw)
+                         **kw(ccls))
             if pkg == 'jax':
                 jax_run_pipeline(config, backend='jax')
             else:
@@ -50,6 +57,17 @@ def test_default_run_byte_equal_to_fslr_tpu(golden_runs, suffix):
     assert got == _read(golden_runs['jax_cluster'] + suffix)
     if suffix in CLUSTER_ARTIFACTS:
         assert got.count(b'\n') > 1
+
+
+@pytest.mark.parametrize('suffix', CLUSTER_ARTIFACTS)
+def test_device_enumeration_run_byte_equal_to_fslr_tpu(golden_runs, suffix):
+    """run_pipeline with device_enum_min_encounters=1 (the scale path of
+    clustering; approximate CIGARs, the quicker align on the CPU): cluster
+    and representative beds byte-equal to fslr_tpu's run with the same
+    settings."""
+    got = _read(golden_runs['torch_device_cluster'] + suffix)
+    assert got == _read(golden_runs['jax_device_cluster'] + suffix)
+    assert got.count(b'\n') > 1
 
 
 def test_default_run_bam_records_equal_to_fslr_tpu(golden_runs):
