@@ -84,10 +84,25 @@ Phases (each raises on failure; the exit code is then not 0):
    in-HBM and spilled to the host must agree, and 19,600 reads on the
    card and on the CPU (both above device_enum_min_encounters).
 
+10. parallel (run before human-3g): (a) slice-10k's data through
+    run_pipeline on a mesh of two entries on the card (``dp_call`` cuts
+    every kernel call of the filter, the primer search and the align
+    stage into two row shards): the six kernels must be launched and
+    every artifact, BAM included, byte-equal to phase 4's cold run (and
+    to a one-device run beside it); (b) consensus-10k's reads as four
+    input files, with clustering and --consensus, in one process and as
+    two CLI processes on the card (``--n-processes 2``, torch.distributed
+    over gloo): all seven kernels launched across the processes, beds,
+    FASTAs, purity CSV and filter counts byte-equal, BAM records equal as
+    a multiset; (c) the same files with ``--procs 4`` equal ``--procs 1``.
+    It prints a JSON line with each run's wall time and reads/s and the
+    card's name and power limit.
+
 The line before the last is a JSON object with each kernel's launches on
-the consensus run (``launches``) and on human-3g's cold run
-(``launches_human_3g``), error, times and bound; the last line is
-{"ok": true, "device": {...}}.
+the consensus run (``launches``), on human-3g's cold run
+(``launches_human_3g``), on the mesh run (``launches_mesh``) and summed
+over the two processes (``launches_two_processes``), error, times and
+bound; the last line is {"ok": true, "device": {...}}.
 
 Not run by default: ``sweep_layouts`` times both layouts of the banded
 and tb kernels on every launch of the slice and consensus runs,
@@ -118,7 +133,9 @@ import dataclasses
 import gzip
 import json
 import os
+import socket
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -1248,6 +1265,208 @@ def cross_check(dev, root):
           f'CSV, BAM records)')
 
 
+PAR_FILES = 4            # consensus-10k's reads as four input files
+PAR_GROUP_TIMEOUT_S = 300   # a process waits at most this for its peer
+PAR_PROC_TIMEOUT_S = 600    # and is killed after this
+
+
+def _tree(out) -> dict:
+    """relative path -> bytes of every artifact under ``out``, but the
+    timings; a BAM as its records sorted (equal as a multiset), the
+    reads without primers as their sorted records, and no index, which
+    follows the BAM's record order."""
+    files = {}
+    for dirpath, _, names in os.walk(out):
+        for n in names:
+            path = os.path.join(dirpath, n)
+            rel = os.path.relpath(path, out)
+            if n.endswith(('.timings.json', '.bai', '.no_primers.fq')):
+                continue
+            if n.endswith('.bam'):
+                head, recs = _bam_parts(path)
+                files[rel] = head + b''.join(sorted(recs))
+            elif n.endswith('.without_primers.fq'):
+                with open(path, 'rb') as fh:
+                    lines = fh.read().split(b'\n')
+                files[rel] = b''.join(sorted(
+                    b'\n'.join(lines[i:i + 4])
+                    for i in range(0, len(lines) - 1, 4)))
+            else:
+                with open(path, 'rb') as fh:
+                    files[rel] = fh.read()
+    return files
+
+
+def _same_trees(a, b, what):
+    ta, tb = _tree(a), _tree(b)
+    if sorted(ta) != sorted(tb):
+        raise AssertionError(f'{what}: the files differ: '
+                             f'{sorted(set(ta) ^ set(tb))}')
+    for rel in ta:
+        if ta[rel] != tb[rel]:
+            raise AssertionError(f'{what}: {rel} differs')
+    return len(ta)
+
+
+def _split_reads(fq, n_files):
+    """Rewrite the folder's b0.fastq as ``n_files`` files, record i in
+    file i % n_files."""
+    src = os.path.join(fq, 'b0.fastq')
+    with open(src, 'rb') as fh:
+        lines = fh.read().split(b'\n')
+    recs = [b'\n'.join(lines[i:i + 4]) + b'\n'
+            for i in range(0, len(lines) - 1, 4)]
+    for f in range(n_files):
+        with open(os.path.join(fq, f'part{f}.fastq'), 'wb') as fh:
+            fh.write(b''.join(recs[f::n_files]))
+    os.remove(src)
+    return len(recs)
+
+
+def _two_processes(argv, out, root):
+    """The CLI in two processes on this card (``--n-processes 2``, gloo at
+    a free local port), each with its launch counts set to 0 before it
+    and written to a file after it.  Returns (wall seconds, launch counts
+    summed over the processes)."""
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        coord = f'127.0.0.1:{s.getsockname()[1]}'
+    code = ('import json, sys\n'
+            'from fslr_tpu_torch import cli, kernels\n'
+            'from fslr_tpu_torch.parallel import distributed\n'
+            f'distributed.TIMEOUT_S = {PAR_GROUP_TIMEOUT_S}\n'
+            'kernels.reset_launches()\n'
+            'cli.main(sys.argv[2:])\n'
+            'with open(sys.argv[1], "w") as fh:\n'
+            '    json.dump(kernels.launch_counts(), fh)\n')
+    counts = [os.path.join(root, f'launches_p{pid}.json') for pid in (0, 1)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, '-c', code, counts[pid], *argv, '--out', out,
+         '--n-processes', '2', '--process-id', str(pid),
+         '--coordinator', coord],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for pid in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=PAR_PROC_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for pid, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            raise AssertionError(
+                f'process {pid} of 2 exited with {p.returncode}:\n'
+                + log.decode(errors='replace')[-3000:])
+    launches = dict.fromkeys(KERNELS, 0)
+    for path in counts:
+        with open(path) as fh:
+            for k, v in json.load(fh).items():
+                launches[k] += v
+    return wall, launches
+
+
+def _timed(fn, want, what):
+    """``fn()`` with launch counts set to 0 before it and read after it;
+    each kernel of ``want`` must have been launched.  Returns (wall
+    seconds, launch counts)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    missing = [k for k in want if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f'{what}: {missing} not launched')
+    return wall, launches
+
+
+def run_parallel(dev, root, slice_ref, slice_fq, smi) -> dict:
+    """Phase 10: the parallel layer on this card.  (a) slice-10k through
+    run_pipeline on a mesh of two entries on this card: every artifact
+    byte-equal to phase 4's cold run; (b) consensus-10k's reads as four
+    input files, with clustering and --consensus, in one process and in
+    two CLI processes on this card: beds, FASTAs and counts byte-equal,
+    BAM records equal as a multiset; (c) the same files with --procs 4
+    against --procs 1.  Returns the launch counts of the mesh run and of
+    the two processes."""
+    from fslr_tpu_torch.cli import _parser, config_from_args, main
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.pipeline import run_pipeline
+    runs = []
+
+    def slice_run(tag, mesh):
+        out = os.path.join(root, f'out_parallel_{tag}')
+        config = config_from_args(_parser().parse_args(
+            ['--name', 'S', '--out', out, '--ref', slice_ref, '--primers',
+             '21q1,17p6', '--basecalled', slice_fq, '--skip-clustering']))
+        wall, launches = _timed(lambda: run_pipeline(config, dev, mesh=mesh),
+                                SLICE_PATH, f'slice-10k ({tag})')
+        runs.append(dict(run=f'slice-10k, {tag}', reads=SLICE_READS,
+                         wall_s=wall, reads_per_s=SLICE_READS / wall))
+        return os.path.join(out, 'S'), launches
+
+    mesh = Mesh((dev, dev))
+    on = ', '.join(map(str, mesh.devices))
+    base_single, _ = slice_run('one device (index cache warm)', None)
+    base_mesh, mesh_launches = slice_run(f'mesh ({on})', mesh)
+    cold = os.path.join(root, 'out_slice_True', 'S')
+    for suffix in ('.mappings.bed', '.filter_counts_summary.csv',
+                   '.without_primers.fq', '.bwa_dodi.bam',
+                   '.bwa_dodi.bam.bai'):
+        for base, what in ((cold, 'phase 4'), (base_single, 'one device')):
+            with open(base + suffix, 'rb') as fa, \
+                    open(base_mesh + suffix, 'rb') as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f'mesh run: {suffix} differs from '
+                                         f'the {what} run')
+    print(f'parallel (a): slice-10k on the mesh ({on}): every '
+          'artifact, BAM included, byte-equal to phase 4\'s cold run; '
+          'launches ' + json.dumps(mesh_launches))
+
+    croot = os.path.join(root, 'parallel_consensus')
+    os.makedirs(croot)
+    ref, fq = make_dataset(croot, CONS_READS, CONS_GROUPS)
+    n = _split_reads(fq, PAR_FILES)
+    argv = ['--name', 'C', '--ref', ref, '--primers', '21q1,17p6',
+            '--basecalled', fq, '--consensus', '--device', str(dev)]
+    outs = {}
+    for procs in (1, 4):
+        outs[procs] = os.path.join(croot, f'out_procs{procs}')
+        wall, launches = _timed(
+            lambda: main(argv + ['--out', outs[procs], '--procs',
+                                 str(procs)]),
+            KERNELS, f'consensus-10k, --procs {procs}')
+        runs.append(dict(run=f'consensus-10k in {PAR_FILES} files, one '
+                         f'process, --procs {procs}', reads=n, wall_s=wall,
+                         reads_per_s=n / wall))
+    check_clusters(os.path.join(outs[1], 'C'), CONS_READS, CONS_GROUPS,
+                   CONS_REF_BP)
+    out2 = os.path.join(croot, 'out_two_processes')
+    wall, two_launches = _two_processes(argv, out2, croot)
+    missing = [k for k in KERNELS if two_launches[k] <= 0]
+    if missing:
+        raise AssertionError(f'two processes: {missing} not launched')
+    runs.append(dict(run=f'consensus-10k in {PAR_FILES} files, two '
+                     f'processes on {mesh.devices[0]}', reads=n, wall_s=wall,
+                     reads_per_s=n / wall))
+    n_two = _same_trees(outs[1], out2, 'two processes')
+    n_procs = _same_trees(outs[1], outs[4], '--procs 4')
+    print(f'parallel (b): two processes == one process ({n_two} artifacts: '
+          'beds, FASTAs, purity CSV and counts byte-equal, BAM records as '
+          'a multiset); launches summed over the processes '
+          + json.dumps(two_launches))
+    print(f'parallel (c): --procs 4 == --procs 1 ({n_procs} artifacts)')
+    print('parallel runs: ' + json.dumps(dict(card=smi.splitlines()[0],
+                                              runs=runs)))
+    return dict(mesh=mesh_launches, two_processes=two_launches)
+
+
 def _index_bytes(ref_path, lengths, k) -> list:
     """Device bytes of each shard's genome codes, int32 counts and
     positions, from the cache the cold run wrote."""
@@ -1750,13 +1969,17 @@ def main():
     checks = check_kernels(dev)
     run_cluster_scale(dev, smi)
     with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root:
-        check_index(dev, *run_slice(dev, root))
+        slice_data = run_slice(dev, root)
+        check_index(dev, *slice_data)
         launches = run_consensus(dev, root)
         cross_check(dev, root)
+        parallel = run_parallel(dev, root, *slice_data, smi)
         human = run_human(dev, root)
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=src, replaces=rep,
              launches=launches[name], launches_human_3g=human[name],
+             launches_mesh=parallel['mesh'][name],
+             launches_two_processes=parallel['two_processes'][name],
              max_abs_err=checks[name]['max_abs_err'],
              ms=checks[name]['ms'], plain_ms=checks[name]['plain_ms'],
              bound_ms=checks[name]['bound_ms'],

@@ -3,8 +3,6 @@
 The options, names, defaults and help of ``fslr_tpu/cli.py`` (click), plus
 ``--device``.  Entry: ``python -m fslr_tpu_torch.cli`` or the
 ``fslr-tpu-torch`` console script; ``main(argv)`` runs in-process.
-Options outside the port's slice reach ``run_pipeline`` and raise
-NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -16,10 +14,7 @@ import torch
 
 import fslr_tpu_torch
 from fslr_tpu_torch.config import ClusterConfig, PipelineConfig
-
-_EPILOG = (
-    "fslr_tpu's --mesh-devices (a JAX device mesh) has no counterpart yet: "
-    'its port is ROADMAP.md\'s "parallel/ over NCCL" item.')
+from fslr_tpu_torch.parallel.mesh import Mesh, canonical, make_mesh
 
 
 def _existing_path(p: str) -> str:
@@ -30,7 +25,7 @@ def _existing_path(p: str) -> str:
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        prog='fslr-tpu-torch', epilog=_EPILOG,
+        prog='fslr-tpu-torch',
         description='fslr on PyTorch: FASTQ folder + primer panel in; '
                     'BAM, mappings.bed, cluster beds and filter counts '
                     'out.')
@@ -63,8 +58,8 @@ def _parser() -> argparse.ArgumentParser:
       help="Multi-host: this process's id in [0, n_processes)  "
            '[default: 0]')
     a('--coordinator', default=None,
-      help='Multi-host: jax.distributed coordinator address (host:port), '
-           'shared by all processes')
+      help='Multi-host: torch.distributed (gloo) coordinator address '
+           '(host:port), shared by all processes; process 0 serves it')
     a('--reference-mask', type=_existing_path,
       help='A bed file containing target regions for creating a masked '
            'reference. Reads are first aligned to the masked reference, '
@@ -96,6 +91,13 @@ def _parser() -> argparse.ArgumentParser:
       help="Consensus engine: 'poa' = profile-graph partial-order "
            "consensus (abpoa-grade), 'pileup' = single-round backbone vote "
            '(faster, less accurate on insertions)  [default: poa]')
+    a('--mesh-devices', default=0, type=int,
+      help='Shard every batched stage kernel data-parallel over this many '
+           'devices of --device\'s type (0 = all visible cards when there '
+           'is more than one, 1 = single-device). A mesh over several '
+           'cards, the default on a host with more than one, has not been '
+           'verified on such a host; pass 1 for the verified single-device '
+           'path  [default: 0]')
     a('--device', default='cuda',
       help='torch device to run on (cuda, cuda:N or cpu); a CUDA device '
            'needs a card, there is no fallback to the CPU  [default: cuda]')
@@ -135,6 +137,21 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
             **{**config.align.__dict__, 'bias': args.bias}))
 
 
+def mesh_from_args(args: argparse.Namespace, device: torch.device):
+    """The mesh of ``--mesh-devices`` on ``device``'s type, or None for one
+    device: 0 takes every visible card (the CPU counts as one device), n
+    takes n of them, ``device`` first (n CPU entries on the CPU)."""
+    n = args.mesh_devices
+    if device.type == 'cpu':
+        return make_mesh(n, 'cpu') if n > 1 else None
+    cards = make_mesh().devices
+    want = len(cards) if n == 0 else min(n, len(cards))
+    if want <= 1:
+        return None
+    first = canonical(device)
+    return Mesh(((first,) + tuple(d for d in cards if d != first))[:want])
+
+
 def main(argv: list[str] | None = None):
     """Parse ``argv`` (sys.argv[1:] when None) and run the pipeline."""
     from fslr_tpu_torch.pipeline import run_pipeline
@@ -143,7 +160,8 @@ def main(argv: list[str] | None = None):
     if device.type == 'cuda' and not torch.cuda.is_available():
         raise RuntimeError(f'--device {args.device}: no CUDA card is '
                            'available (use --device cpu to run on the CPU)')
-    run_pipeline(config_from_args(args), device)
+    run_pipeline(config_from_args(args), device,
+                 mesh=mesh_from_args(args, device))
 
 
 if __name__ == '__main__':

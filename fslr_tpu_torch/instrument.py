@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import json
 import sys
+import threading
 import time
 
 
@@ -20,13 +21,16 @@ import time
 # measured & reported alongside reads/s").  Stage code calls add_cells() with
 # the number of useful dynamic-programming cell updates it dispatched (SW
 # primer scans, banded extension, traceback); bench.py divides by stage wall
-# time.  A plain module counter: the pipeline dispatches from one thread.
+# time.  A module counter under a lock: with --procs, input files are
+# filtered on several host threads.
 
 _dp_cells: dict = {}
+_cells_lock = threading.Lock()
 
 
 def add_cells(n: int, tag: str = 'dp') -> None:
-    _dp_cells[tag] = _dp_cells.get(tag, 0) + int(n)
+    with _cells_lock:
+        _dp_cells[tag] = _dp_cells.get(tag, 0) + int(n)
 
 
 def cell_count(tag: str | None = None) -> int:

@@ -10,11 +10,13 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import threading
 
 import numpy as np
 
 _LIB = None
 _TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 _DECODE = np.frombuffer(b'ACGTN', dtype=np.uint8)
 
@@ -23,6 +25,13 @@ _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 
 def _load():
+    # input files may be parsed on several threads (--procs): the first
+    # caller builds and binds, the others wait for its library
+    with _LOAD_LOCK:
+        return _load_once()
+
+
+def _load_once():
     global _LIB, _TRIED
     if _TRIED:
         return _LIB

@@ -8,8 +8,9 @@ and flags, so a changed source rebuilds and an unchanged one loads at
 once.  The
 library is bound with ``ctypes``: every pointer and the stream pass as
 ``c_void_p``.  Each C entry point launches on the caller's stream and
-returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if that is
-not 0 and counts the launch.
+returns ``cudaGetLastError()``; :meth:`Kernel.launch` runs it with the
+arguments' device current, raises if it returns not 0 and counts the
+launch.
 
 Nothing here runs at import time: importing the package needs neither
 ``nvcc`` nor a card.
@@ -37,6 +38,7 @@ LINK_FLAGS = ARCH_FLAGS + ('-shared',)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()   # launches come from several host threads
 
 
 def _sources() -> list[str]:
@@ -139,14 +141,23 @@ class Kernel:
         self.launches = 0
 
     def launch(self, *args):
+        """Call the entry with ``args`` (tensors pass as their data
+        pointers) on the device that holds the first tensor argument: its
+        C entry runs with that device current, on that device's current
+        stream, whichever device the calling thread had current."""
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+        ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args]
         lib = library()
-        rc = getattr(lib, self.symbol)(
-            *args, torch.cuda.current_stream().cuda_stream)
+        with torch.cuda.device(dev):
+            rc = getattr(lib, self.symbol)(
+                *ptrs, torch.cuda.current_stream(dev).cuda_stream)
         if rc:
             msg = lib.fslr_error_string(rc).decode()
             raise RuntimeError(f'{self.name} launch failed: CUDA error '
                                f'{rc} ({msg})')
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1
 
 
 MASK = Kernel('mask_kernel', 'fslr_mask',

@@ -94,9 +94,8 @@ def _banded_cuda(q, w, qlens, *, match, mismatch, fg, ext, cpl=None):
     score = torch.empty(N, dtype=torch.float32, device=dev)
     qend = torch.empty(N, dtype=torch.int32, device=dev)
     lane = torch.empty(N, dtype=torch.int32, device=dev)
-    kernels.BANDED.launch(q.data_ptr(), w.data_ptr(), qlens.data_ptr(),
-                          order.data_ptr(), N, Lq, *sc, score.data_ptr(),
-                          qend.data_ptr(), lane.data_ptr(), cpl)
+    kernels.BANDED.launch(q, w, qlens, order, N, Lq, *sc, score, qend, lane,
+                          cpl)
     return score, qend, lane
 
 

@@ -115,10 +115,8 @@ def _prof_cuda(q, sp, g, qlens, *, fg, ext, openF):
     qend = torch.empty(N, dtype=torch.int32, device=dev)
     lane = torch.empty(N, dtype=torch.int32, device=dev)
     bits = torch.empty((N, Lq // 8, BW), dtype=torch.int32, device=dev)
-    kernels.PROF.launch(q.data_ptr(), sp.data_ptr(), g.data_ptr(),
-                        qlens.data_ptr(), N, Lq, fg, ext, openF,
-                        score.data_ptr(), qend.data_ptr(), lane.data_ptr(),
-                        bits.data_ptr())
+    kernels.PROF.launch(q, sp, g, qlens, N, Lq, fg, ext, openF, score, qend,
+                        lane, bits)
     return score, qend, lane, bits
 
 

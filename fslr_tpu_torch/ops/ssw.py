@@ -203,9 +203,7 @@ def _sw_cuda(q, t, qlens, tlens, *, match, mismatch, fg, ext):
     kernels.check(tlens, 'tlens', torch.int32, (B,), dev)
     sc = _sw_scores(match, mismatch, fg, ext)
     score, tend, qend, order = _sw_outputs(B, dev)
-    kernels.SW.launch(q.data_ptr(), t.data_ptr(), qlens.data_ptr(),
-                      tlens.data_ptr(), order.data_ptr(), B, T, *sc,
-                      score.data_ptr(), tend.data_ptr(), qend.data_ptr())
+    kernels.SW.launch(q, t, qlens, tlens, order, B, T, *sc, score, tend, qend)
     return score, tend, qend
 
 
@@ -219,10 +217,8 @@ def _sw_packed_cuda(q, t, tlens, *, match, mismatch, fg, ext, stride):
     # the launch refuses a stride that is not a multiple of the kernel's
     # columns a lane (csrc/ssw.cu)
     score, tend, lane, order = _sw_outputs(B, dev)
-    kernels.SW_PACKED.launch(q.data_ptr(), t.data_ptr(), tlens.data_ptr(),
-                             order.data_ptr(), B, T, stride, *sc,
-                             score.data_ptr(), tend.data_ptr(),
-                             lane.data_ptr())
+    kernels.SW_PACKED.launch(q, t, tlens, order, B, T, stride, *sc, score,
+                             tend, lane)
     return score, tend, lane
 
 

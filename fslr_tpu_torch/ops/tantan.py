@@ -111,11 +111,9 @@ def _posterior_cuda(seq, cfg: JunkFilterConfig):
                      device=dev)
     post = torch.empty((B, L), dtype=torch.float32, device=dev)
     p = _params(cfg)
-    kernels.MASK.launch(seq.data_ptr(), B, L, cfg.mask_max_period,
-                        start_d.data_ptr(), p['stay_b'], p['stay_r'],
-                        p['end_p'],
-                        p['match_ratio'], p['mismatch_ratio'],
-                        ck.data_ptr(), post.data_ptr())
+    kernels.MASK.launch(seq, B, L, cfg.mask_max_period, start_d, p['stay_b'],
+                        p['stay_r'], p['end_p'], p['match_ratio'],
+                        p['mismatch_ratio'], ck, post)
     return post
 
 

@@ -114,9 +114,8 @@ def _tb_cuda(q, w, qlens, *, match, mismatch, fg, ext, cpl=None):
     qend = torch.empty(N, dtype=torch.int32, device=dev)
     lane = torch.empty(N, dtype=torch.int32, device=dev)
     bits = torch.empty((N, Lq // 8, BW), dtype=torch.int32, device=dev)
-    kernels.TB.launch(q.data_ptr(), w.data_ptr(), qlens.data_ptr(),
-                      order.data_ptr(), N, Lq, *sc, score.data_ptr(),
-                      qend.data_ptr(), lane.data_ptr(), bits.data_ptr(), cpl)
+    kernels.TB.launch(q, w, qlens, order, N, Lq, *sc, score, qend, lane, bits,
+                      cpl)
     return score, qend, lane, bits
 
 
@@ -210,9 +209,7 @@ def _walk_cuda(bits, score, qend, lane):
     kernels.check(lane, 'lane', torch.int32, (N,), dev)
     packed = torch.empty((6, N), dtype=torch.int32, device=dev)
     emits = torch.empty((N, (Lq + BW) // 4), dtype=torch.uint8, device=dev)
-    kernels.WALK.launch(bits.data_ptr(), score.data_ptr(), qend.data_ptr(),
-                        lane.data_ptr(), N, Lq, packed.data_ptr(),
-                        emits.data_ptr())
+    kernels.WALK.launch(bits, score, qend, lane, N, Lq, packed, emits)
     return packed, emits
 
 

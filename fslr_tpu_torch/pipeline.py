@@ -1,6 +1,6 @@
 """Pipeline orchestrator on an explicit ``torch.device``.
 
-Counterpart of ``fslr_tpu.pipeline._run_pipeline`` for one process:
+Counterpart of ``fslr_tpu.pipeline``:
 
   input FASTQ folder -> junk/concatemer filter -> primer ID + trim ->
   ``without_primers.fq`` -> streamed align (seed, extend, select,
@@ -21,12 +21,19 @@ chunk are built on one host thread while the next chunk aligns.  With
 encoded column-wise (``io.bam.encode_chunk_items``); without it,
 approximate ones.  Artifacts equal ``fslr_tpu``'s for the same config
 either way.
+
+Parallel runs (their artifacts equal a plain run's): a device mesh
+shards every batched kernel call by rows (``parallel/dispatch.py``);
+several processes, joined by ``torch.distributed`` over gloo, each take a
+share of the input files, and process 0 merges their parts and clusters;
+``procs`` host threads filter and primer-search input files side by side.
 """
 
 from __future__ import annotations
 
 import contextlib
 import glob
+import heapq
 import os
 import sys
 import threading
@@ -35,6 +42,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fslr_tpu_torch.config import PipelineConfig
 from fslr_tpu_torch.encode import revcomp_str
@@ -43,25 +51,12 @@ from fslr_tpu_torch.instrument import StageTimer
 from fslr_tpu_torch.io import bam as bamio
 from fslr_tpu_torch.io.fastq import glob_input_files, read_reads
 from fslr_tpu_torch.panel import load_panel
+from fslr_tpu_torch.parallel import dispatch
+from fslr_tpu_torch.parallel.distributed import initialize_distributed
+from fslr_tpu_torch.parallel.mesh import Mesh, canonical
 from fslr_tpu_torch.stages import (align as align_stage, cluster,
                                    consensus, filter_junk, find_primers,
                                    mapping_table)
-
-
-def _check_supported(config: PipelineConfig):
-    """Raise NotImplementedError, naming the ROADMAP.md item that ports
-    it, for every setting outside this package's slice."""
-    todo = [
-        (not config.skip_alignment, 'skip_alignment=True',
-         'parallel/ over NCCL'),
-        (config.n_processes == 1, 'n_processes > 1',
-         'parallel/ over NCCL'),
-    ]
-    for ok, what, item in todo:
-        if not ok:
-            raise NotImplementedError(
-                f'fslr_tpu_torch does not run {what} yet: ROADMAP.md, '
-                f'port queue item "{item}"')
 
 
 def _load_indexed(path: str, k: int, device: torch.device, timer=None):
@@ -108,8 +103,12 @@ def _load_indexed(path: str, k: int, device: torch.device, timer=None):
     else:
         arrs = dict(counts=sidx.counts, positions=sidx.positions)
     try:
+        # written aside, then renamed: processes that share the reference
+        # never read a half-written cache
+        tmp = f'{cache}.{os.getpid()}.{threading.get_ident()}.tmp.npz'
         with timed('index_cache_write'):
-            np.savez(cache, **arrs)
+            np.savez(tmp, **arrs)
+            os.replace(tmp, cache)
     except Exception as e:
         print(f'WARNING: could not write seed-index cache {cache} '
               f'({type(e).__name__}: {e}); next run will rebuild',
@@ -193,19 +192,157 @@ def _encode_columnar(aln, fa, off, bam_items):
             plens.tolist()))
 
 
-def run_pipeline(config: PipelineConfig, device: torch.device):
+def _staged_map(stage, name: str, fn, items: list, workers: int) -> list:
+    """``[fn(x) for x in items]``, each call timed as stage ``name``; on a
+    pool of ``workers`` host threads when that is more than one, timed
+    then as one stage (results in input order)."""
+    workers = min(max(1, int(workers or 1)), len(items))
+    if workers <= 1:
+        out = []
+        for x in items:
+            with stage(name):
+                out.append(fn(x))
+        return out
+    with stage(name), ThreadPoolExecutor(
+            workers, thread_name_prefix='procs') as ex:
+        return list(ex.map(fn, items))
+
+
+def _write_counts(path: str, counts: dict):
+    with open(path, 'w') as fc:
+        fc.write('Filter counts:' + '\n')
+        fc.write(','.join(str(k) for k in counts.keys()) + '\n')
+        fc.write(','.join(str(v) for v in counts.values()) + '\n')
+
+
+def run_pipeline(config: PipelineConfig, device: torch.device,
+                 mesh: Mesh | None = None):
     """Run filter -> primers -> align -> BAM + mappings.bed -> clustering
     [-> consensus] on ``device``.
 
-    Takes ``n_processes=1`` and no skip_alignment; anything else raises
-    NotImplementedError.  With ``reference_mask`` the reads are also
-    mapped against the masked reference (``{name}_temp_ref.fa``, written
-    on a host thread while the filter runs) and both references'
-    candidates are pooled before selection.  Input files are processed
-    one after another (``procs`` is not used)."""
+    ``mesh`` (``parallel.mesh.Mesh``, its first device ``device``): every
+    batched kernel call of the filter, the primer search and the align
+    stage runs in row shards over its devices (parallel/dispatch.py); the
+    artifacts equal a run without one.
+
+    ``config.n_processes > 1``: this process is rank ``process_id`` of a
+    multi-process run (torch.distributed, gloo, at ``coordinator``): it
+    runs filter -> primers -> align on its share of the input files
+    (``files[process_id::n_processes]``) as ``{name}__p{process_id}``,
+    the counters are summed over the processes, and process 0 merges the
+    parts into ``{name}.*`` and clusters them.  Beds and counts equal a
+    one-process run's, the BAM's records too, as a multiset.
+
+    ``skip_alignment``: clustering (and consensus) read the
+    ``{name}.mappings.bed`` and BAM of an earlier run.  ``procs``: input
+    files are filtered and primer-searched on that many host threads.
+    With ``reference_mask`` the reads are also mapped against the masked
+    reference (``{name}_temp_ref.fa``, written on a host thread while the
+    filter runs) and both references' candidates are pooled before
+    selection."""
     if not isinstance(device, torch.device):
         raise TypeError(f'device must be a torch.device, not {device!r}')
-    _check_supported(config)
+    if mesh is not None and mesh.devices[0] != canonical(device):
+        raise ValueError(f'the mesh starts at {mesh.devices[0]}, not at the '
+                         f'run device {device}')
+    with dispatch.use_mesh(mesh):
+        if config.n_processes > 1:
+            return _run_pipeline_multiprocess(config, device)
+        return _run_pipeline(config, device)
+
+
+def _read_counts_csv(path: str) -> dict:
+    with open(path) as fh:
+        lines = [ln.rstrip('\n') for ln in fh]
+    return {k: v if k == 'name' else int(v)
+            for k, v in zip(lines[1].split(','), lines[2].split(','))}
+
+
+def _allreduce_counts(counts: dict) -> dict:
+    """The counters summed over the processes of the group, keys in
+    first-seen order over ranks 0, 1, ... (fslr_tpu's merge order)."""
+    local = {k: v for k, v in counts.items() if k != 'name'}
+    if not dist.is_initialized():
+        return local
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, local)
+    merged: dict = {}
+    for part in gathered:
+        for k, v in part.items():
+            merged[k] = merged.get(k, 0) + v
+    return merged
+
+
+def _merge_bams_streamed(parts: list[str], out_path: str):
+    """N-way streamed merge of coordinate-sorted BAMs (the samtools merge
+    role): raw record copies, constant memory."""
+    streams = [bamio.stream_raw_records(p) for p in parts]
+    names, lengths = streams[0][0], streams[0][1]
+    if any(nm != names for nm, _, _ in streams[1:]):
+        raise ValueError('per-process BAM headers differ')
+
+    def _items(it):
+        for payload, _qname, rid, pos, rend in it:
+            yield (rid if rid >= 0 else 1 << 30), pos, rend, rid, payload
+
+    merged = heapq.merge(*(_items(s[2]) for s in streams),
+                         key=lambda t: (t[0], t[1]))
+    bamio.write_bam_items(out_path, names, lengths,
+                          ((rid, pos, rend, payload)
+                           for (_, pos, rend, rid, payload) in merged),
+                          sort_by_coord=False, write_index=True)
+
+
+def _run_pipeline_multiprocess(config: PipelineConfig, device: torch.device):
+    """One rank of a multi-process run (fslr_tpu.pipeline.
+    _run_pipeline_multihost): the stages on this rank's files, the
+    counters summed over the ranks, a barrier, then on rank 0 the merge
+    of every rank's part and the clustering.  The group is joined after
+    the stages, which need no peer: a rank waits for the others only
+    where it needs their results."""
+    pid, nproc = config.process_id, config.n_processes
+    part = f'{config.name}__p{pid}'
+    _run_pipeline(config.replace(name=part, n_processes=1, process_id=0,
+                                 skip_clustering=True),
+                  device, file_shard=(pid, nproc))
+    initialize_distributed(config.coordinator, nproc, pid)
+    counts = _allreduce_counts(_read_counts_csv(os.path.join(
+        config.out, f'{part}.filter_counts_summary.csv')))
+    dist.barrier()
+    if pid != 0:
+        return
+
+    base = os.path.join(config.out, config.name)
+    parts = [os.path.join(config.out, f'{config.name}__p{i}')
+             for i in range(nproc)]
+    # a read lives in one process, so a stable re-sort of the parts'
+    # tables reproduces the one-process order
+    mapping_table.write_mappings_bed(
+        mapping_table.sort_table(mapping_table.concat_tables(
+            [cluster.read_mappings(p + '.mappings.bed') for p in parts])),
+        f'{base}.mappings.bed')
+    _merge_bams_streamed([p + '.bwa_dodi.bam' for p in parts],
+                         f'{base}.bwa_dodi.bam')
+    with open(f'{base}.without_primers.fq', 'w') as out:
+        for p in parts:
+            if os.path.exists(p + '.without_primers.fq'):
+                with open(p + '.without_primers.fq') as fh:
+                    out.write(fh.read())
+    _write_counts(f'{base}.filter_counts_summary.csv',
+                  dict(name=config.name, **counts))
+    if not config.keep_temp:
+        for p in parts:
+            for pth in glob.glob(glob.escape(p) + '.*'):
+                os.remove(pth)
+    if not config.skip_clustering:
+        _run_pipeline(config.replace(skip_alignment=True, n_processes=1,
+                                     process_id=0), device)
+
+
+def _run_pipeline(config: PipelineConfig, device: torch.device,
+                  file_shard: tuple[int, int] | None = None):
+    """One process's run; ``file_shard`` (pid, n) keeps the input files
+    ``files[pid::n]``."""
     basename = os.path.join(config.out, config.name)
     print('Basename: ', basename, file=sys.stderr)
     timer = StageTimer()
@@ -220,14 +357,61 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
             if device.type == 'cuda':
                 torch.cuda.synchronize(device)
 
+    panel = load_panel().subset(config.primers)
+    os.makedirs(config.out, exist_ok=True)
+    ref = sidx = None
+    if not config.skip_alignment:
+        ref, sidx = _align_stages(config, device, panel, basename, timer,
+                                  stage, file_shard)
+
+    if not config.skip_clustering:
+        print('Making clusters')
+        with stage('read_mappings'):
+            bed = cluster.read_mappings(f'{basename}.mappings.bed')
+            chr_lengths = bamio.get_chromosome_lengths(
+                f'{basename}.bwa_dodi.bam')
+        with stage('clustering'):
+            res = cluster.cluster_stage(bed, chr_lengths, config.cluster,
+                                        device)
+        if res.no_clusters:
+            print('No clusters were found.')
+            timer.report(f'{basename}.timings.json')
+            return
+        with stage('write_cluster_beds'):
+            mapping_table.write_mappings_bed(
+                res.cluster_bed, f'{basename}.mappings.cluster.bed')
+            mapping_table.write_mappings_bed(
+                res.representative_bed,
+                f'{basename}.mappings.representative.bed')
+
+        if config.run_consensus:
+            print('Creating consensus sequences')
+            with stage('load_index'):
+                if ref is None:
+                    ref, sidx = _load_indexed(config.ref,
+                                              config.align.seed_k, device,
+                                              timer)
+                didx = align_stage.device_index(ref, sidx, device,
+                                                config.align)
+            with stage('consensus'):
+                consensus.run_consensus_stage(res.subgraphs, bed, ref, didx,
+                                              panel, config, device)
+
+    timer.report(f'{basename}.timings.json')
+    print('fslr finished', file=sys.stderr)
+
+
+def _align_stages(config: PipelineConfig, device: torch.device, panel,
+                  basename: str, timer, stage, file_shard):
+    """filter -> primers -> align -> ``{name}.bwa_dodi.bam`` + ``.bai``,
+    ``.mappings.bed``, ``.without_primers.fq`` and
+    ``.filter_counts_summary.csv``.  Returns the reference and its seed
+    index (host)."""
     filter_counts = {
         'name': config.name, 'total_kept': 0, 'total_dropped': 0,
         'concatemers_dropped': 0, 'junk_seqs_dropped': 0,
         'short_seqs_dropped': 0, 'False_False': 0,
     }
-    panel = load_panel().subset(config.primers)
-    os.makedirs(config.out, exist_ok=True)
-
     # the masked reference is written, and the seed index loaded (or
     # built on the device), on host threads while the filter runs
     masked_ref_path = f'{basename}_temp_ref.fa'
@@ -239,35 +423,48 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
 
     print('Filtering reads: ', config.basecalled, file=sys.stderr)
     fs = glob_input_files(config.basecalled)
+    if file_shard is not None:
+        pid, nproc = file_shard
+        fs = fs[pid::nproc]
+        print(f'process {pid}/{nproc}: {len(fs)} input files',
+              file=sys.stderr)
     for pth in fs:
         if os.path.getsize(pth) == 0:
             raise ValueError(f"The file '{pth}' is empty.")
+
+    def _filter_one(pth):
+        box: dict = {}
+        return filter_junk.run_file(pth, panel, config, device,
+                                    out_box=box), box
+
+    # each input file gets its own filtered copy (a uuid name), which the
+    # primer stage deletes: explicit lists, never a glob of the out folder
+    # that other processes share, keep their files out of this one's hands
     handoff: dict[str, object] = {}
     filtered_files: list[str] = []
-    for pth in fs:
-        with stage('filter_junk'):
-            box: dict = {}
-            c = filter_junk.run_file(pth, panel, config, device, out_box=box)
+    filtered = _staged_map(stage, 'filter_junk', _filter_one, fs,
+                           config.procs)
+    for c, box in filtered:
         if 'path' in box:
             handoff[box['path']] = box['reads']
             filtered_files.append(box['path'])
         _merge_existing(filter_counts, c)
 
-    no_primer_files: list[str] = []
     for pth in filtered_files:
         if os.path.getsize(pth) == 0:
             print(f"WARNING: The file '{pth}' is empty.", file=sys.stderr)
-    for pth in filtered_files:
-        with stage('find_primers'):
-            c = find_primers.run_file(pth, panel, config, device,
-                                      records=handoff.get(pth))
-        no_primer_files.append(
-            pth.replace('.filtered_junk.fq', '.no_primers.fq'))
+    primed = _staged_map(
+        stage, 'find_primers',
+        lambda p: find_primers.run_file(p, panel, config, device,
+                                        records=handoff.get(p)),
+        filtered_files, config.procs)
+    for c in primed:
         _merge_all(filter_counts, c)
     print('Filter counts: ', filter_counts, file=sys.stderr)
 
     with open(f'{basename}.without_primers.fq', 'w') as out:
-        for pth in sorted(no_primer_files):
+        for pth in sorted(p.replace('.filtered_junk.fq', '.no_primers.fq')
+                          for p in filtered_files):
             with open(pth) as fh:
                 out.write(fh.read())
             os.remove(pth)
@@ -362,44 +559,10 @@ def run_pipeline(config: PipelineConfig, device: torch.device):
                 config.regions, panel.seqs)
         mapping_table.write_mappings_bed(table, f'{basename}.mappings.bed')
 
-    with open(f'{basename}.filter_counts_summary.csv', 'w') as fc:
-        fc.write('Filter counts:' + '\n')
-        fc.write(','.join(str(k) for k in filter_counts.keys()) + '\n')
-        fc.write(','.join(str(v) for v in filter_counts.values()) + '\n')
+    _write_counts(f'{basename}.filter_counts_summary.csv', filter_counts)
 
     # the align stage's device tensors (every shard's genome and seed
     # index, and the masked reference's) go before the clustering; the
     # consensus stage uploads the main index again
     del didx, masked
-
-    if not config.skip_clustering:
-        print('Making clusters')
-        with stage('read_mappings'):
-            bed = cluster.read_mappings(f'{basename}.mappings.bed')
-            chr_lengths = bamio.get_chromosome_lengths(
-                f'{basename}.bwa_dodi.bam')
-        with stage('clustering'):
-            res = cluster.cluster_stage(bed, chr_lengths, config.cluster,
-                                        device)
-        if res.no_clusters:
-            print('No clusters were found.')
-            timer.report(f'{basename}.timings.json')
-            return
-        with stage('write_cluster_beds'):
-            mapping_table.write_mappings_bed(
-                res.cluster_bed, f'{basename}.mappings.cluster.bed')
-            mapping_table.write_mappings_bed(
-                res.representative_bed,
-                f'{basename}.mappings.representative.bed')
-
-        if config.run_consensus:
-            print('Creating consensus sequences')
-            with stage('load_index'):
-                didx = align_stage.device_index(ref, sidx, device,
-                                                config.align)
-            with stage('consensus'):
-                consensus.run_consensus_stage(res.subgraphs, bed, ref, didx,
-                                              panel, config, device)
-
-    timer.report(f'{basename}.timings.json')
-    print('fslr finished', file=sys.stderr)
+    return ref, sidx

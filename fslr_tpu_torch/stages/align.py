@@ -42,6 +42,7 @@ from fslr_tpu_torch.config import AlignConfig, PipelineConfig
 from fslr_tpu_torch.encode import _COMP, bucket_length
 from fslr_tpu_torch.index.reference import Reference, SeedIndex
 from fslr_tpu_torch.ops import banded, seed, selection, traceback
+from fslr_tpu_torch.parallel import dispatch
 
 _SLICE_BUCKETS = (256, 384, 512, 768, 1024, 1536, 2048, 3072, 4096,
                   6144, 8192, 12288, 16384, 24576, 32768)
@@ -242,7 +243,10 @@ def device_index(ref: Reference, sidx: SeedIndex, device: torch.device,
     (int32) to ``device`` and build the packed seed table there when the
     occurrence cap allows it (counterpart of _device_arrays and
     _device_table): one DeviceIndex for an unsharded index, one per shard
-    (at least two) for a sharded one, each with its own cap."""
+    (at least two) for a sharded one, each with its own cap.  Under an
+    active mesh of several devices every tensor is also copied once to
+    each other mesh device (``dispatch.replicas``), where the sharded
+    calls read it; a device the mesh names twice holds one copy."""
     acfg = acfg or AlignConfig()
     parts = ([(sh.ref, sh.sidx, sh.contig_base) for sh in sidx.shards]
              if sidx.shards else [(ref, sidx, 0)])
@@ -257,6 +261,9 @@ def device_index(ref: Reference, sidx: SeedIndex, device: torch.device,
                  if C <= _MAX_TABLE_C and psidx.positions.size > 0 else None)
         out.append(DeviceIndex(genome, counts, positions, C, table, pref,
                                base))
+        if dispatch.sharded():
+            for t in (genome, counts, positions, table):
+                dispatch.replicas(t)
     return out
 
 
@@ -276,6 +283,27 @@ def _query_rows(cat_d, sf, er, srev, qlens, SL: int):
         j >= qlens[:, None], 4)
 
 
+def _seed_kernel(starts, lf, cat_d, counts, positions, table, L: int,
+                 S: int, C: int, acfg: AlignConfig):
+    """Candidate bands of both strands of the reads at ``starts`` (of
+    lengths ``lf``) in ``cat_d``: (6, 2, nb, max_cand) int32, the keys of
+    _SEED_KEYS, then forward and reverse (the batch on axis 2)."""
+    nb = starts.shape[0]
+    # forward rows, then reverse-complement rows, of every read
+    starts, lf = starts.repeat(2), lf.repeat(2)
+    lens2 = torch.clamp_max(lf, L).to(torch.int32)
+    arr = _query_rows(cat_d, starts, starts + lf,
+                      torch.arange(2 * nb, device=cat_d.device) >= nb,
+                      lens2, L)
+    res = seed.seed_candidates(
+        arr, lens2, counts, positions, k=acfg.seed_k,
+        stride=acfg.seed_stride, occ_drop=acfg.occ_drop,
+        band_w=acfg.band_width // 2, max_cand=acfg.max_candidates, S=S,
+        C=C, table=table)
+    packed = torch.stack([res[n].to(torch.int32) for n in _SEED_KEYS])
+    return packed.reshape(len(_SEED_KEYS), 2, nb, -1)
+
+
 def _seed_rows(cat_d, off: np.ndarray, didx: DeviceIndex,
                config: PipelineConfig) -> Cands:
     """Seed both strands of every read; returns the candidate bands in
@@ -290,26 +318,18 @@ def _seed_rows(cat_d, off: np.ndarray, didx: DeviceIndex,
         L = bucket_length(max(int(rlens[i]), k + 1),
                           config.batch.length_buckets)
         buckets.setdefault(L, []).append(i)
-    pending = []          # (part, (6, 2 * nb, max_cand) device tensor)
+    pending = []          # (part, (6, 2, nb, max_cand) device tensor)
     for L, idxs in sorted(buckets.items()):
         S = max(1, (L - k) // acfg.seed_stride + 1)
         step = max(1, min(config.batch.batch_size, _SEED_HITS // (S * C)))
         for o in range(0, len(idxs), step):
             part = np.asarray(idxs[o:o + step], np.int64)
-            # forward rows, then reverse-complement rows, of every read
-            starts, lf = (torch.from_numpy(np.tile(a, 2)).to(cat_d.device)
+            starts, lf = (torch.from_numpy(a).to(cat_d.device)
                           for a in (off[part], rlens[part]))
-            lens2 = torch.clamp_max(lf, L).to(torch.int32)
-            arr = _query_rows(cat_d, starts, starts + lf,
-                              torch.arange(len(lf), device=cat_d.device)
-                              >= len(part), lens2, L)
-            res = seed.seed_candidates(
-                arr, lens2, didx.counts, didx.positions, k=k,
-                stride=acfg.seed_stride, occ_drop=acfg.occ_drop,
-                band_w=acfg.band_width // 2, max_cand=acfg.max_candidates,
-                S=S, C=C, table=didx.table)
-            pending.append((part, torch.stack(
-                [res[n].to(torch.int32) for n in _SEED_KEYS])))
+            pending.append((part, dispatch.dp_call(
+                _seed_kernel, (starts, lf),
+                (cat_d, didx.counts, didx.positions, didx.table),
+                statics=(L, S, C, acfg), out_dims=2)))
     if not pending:
         return _empty_cands()
     flat = torch.cat([p.reshape(-1) for (_, p) in pending]).cpu().numpy()
@@ -317,10 +337,11 @@ def _seed_rows(cat_d, off: np.ndarray, didx: DeviceIndex,
                             'wcnt')}
     fo = 0
     for part, p in pending:
-        valid_a, count_a, diag_a, qmin_a, qmax_a, wsum_a = \
-            flat[fo:fo + p.numel()].reshape(tuple(p.shape))
-        fo += p.numel()
         nb = len(part)
+        # forward rows, then reverse rows
+        valid_a, count_a, diag_a, qmin_a, qmax_a, wsum_a = \
+            flat[fo:fo + p.numel()].reshape(len(_SEED_KEYS), 2 * nb, -1)
+        fo += p.numel()
         ok = ((valid_a != 0) & (count_a >= acfg.min_chain_seeds)
               & (qmax_a - qmin_a >= acfg.min_band_span))
         rr, cc = np.nonzero(ok)
@@ -441,6 +462,15 @@ def _rows_per_call(SL: int, device: torch.device) -> int:
     return max(128, free // 8 // (32 * (SL + 2 * banded.BW)))
 
 
+def _score_kernel(sf, er, srev, qlens, ws, cmin, cmax, cat_d, genome,
+                  SL: int, scoring):
+    """Query slices gathered from ``cat_d``, then the score pass
+    (banded.banded_extend_score): (5, N)."""
+    q = _query_rows(cat_d, sf, er, srev, qlens, SL)
+    return banded.banded_extend_score(q, qlens, ws, cmin, cmax, genome,
+                                      scoring)
+
+
 def _extend_rows(cands: Cands, cat_d, off: np.ndarray, didx: DeviceIndex,
                  config: PipelineConfig) -> CandAln:
     """Score pass over every band: the read slice [qmin - margin,
@@ -481,9 +511,10 @@ def _extend_rows(cands: Cands, cat_d, off: np.ndarray, didx: DeviceIndex,
                     off[ri] + qlo[ci], off[ri] + Lq[ci] - qlo[ci],
                     cands.srev[ci], qlens.astype(np.int32), ws_all[ci],
                     cmin_all[ci], cmax_all[ci]))
-            q = _query_rows(cat_d, sf, er, srev, qlens, SL)
-            pending.append((ci, banded.banded_extend_score(
-                q, qlens, ws, cmin, cmax, didx.genome, acfg.scoring)))
+            pending.append((ci, dispatch.dp_call(
+                _score_kernel, (sf, er, srev, qlens, ws, cmin, cmax),
+                (cat_d, didx.genome), statics=(SL, acfg.scoring),
+                out_dims=1)))
 
     flat = torch.cat([p.reshape(-1) for (_, p) in pending]).cpu().numpy()
     ck_all, res = [], []
@@ -630,10 +661,10 @@ def _select_and_finalize(ca: CandAln, ref: Reference,
                                 np.float32(1.0))
     qs, qe, sc, vmask, bias = (torch.from_numpy(a).to(device)
                                for a in (qs, qe, sc, vmask, bias))
-    chosen = selection.select_alignments(
-        qs, qe, sc, vmask, ol_cost=acfg.ol_cost,
-        max_overlap=acfg.max_overlap, bias=bias,
-        min_score=acfg.min_selected_score).cpu().numpy()
+    chosen = dispatch.dp_call(
+        _select_kernel, (qs, qe, sc, vmask, bias),
+        statics=(acfg.ol_cost, acfg.max_overlap,
+                 acfg.min_selected_score)).cpu().numpy()
     sel_mask = np.zeros(n, bool)
     sel_mask[val] = chosen[bb, cc]
     sel_idx = np.flatnonzero(sel_mask)
@@ -700,6 +731,24 @@ def _select_and_finalize(ca: CandAln, ref: Reference,
     return _zdrop_split_rows(out, ca, sel_idx, regions, ref, config, cat, off)
 
 
+def _select_kernel(qs, qe, sc, vmask, bias, ol_cost, max_overlap,
+                   min_score):
+    """selection.select_alignments with positional settings (dp_call's
+    statics)."""
+    return selection.select_alignments(
+        qs, qe, sc, vmask, ol_cost=ol_cost, max_overlap=max_overlap,
+        bias=bias, min_score=min_score)
+
+
+def _emit_kernel(sf, er, srev, qlens, ws, cmin, cmax, cat_d, genome,
+                 SL: int, scoring):
+    """Query slices gathered from ``cat_d``, then the traceback extension
+    (traceback.banded_extend): ((6, N) packed, (N, (SL + 128) / 4)
+    emits)."""
+    q = _query_rows(cat_d, sf, er, srev, qlens, SL)
+    return traceback.banded_extend(q, qlens, ws, cmin, cmax, genome, scoring)
+
+
 def _no_emits(n: int):
     return (np.zeros(n, bool), np.zeros(n, np.int64),
             np.zeros(0, np.int64), np.zeros(0, np.int64))
@@ -739,10 +788,10 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
             sf, er, srev, qlens, ws_g, cmin_g, cmax_g = (
                 torch.from_numpy(np.ascontiguousarray(a[g])).to(dev)
                 for a in rows)
-            q = _query_rows(cat_d, sf, er, srev, qlens, SL)
-            pending.append((g, *traceback.banded_extend(
-                q, qlens, ws_g, cmin_g, cmax_g, genome,
-                config.align.scoring)))
+            pending.append((g, *dispatch.dp_call(
+                _emit_kernel, (sf, er, srev, qlens, ws_g, cmin_g, cmax_g),
+                (cat_d, genome), statics=(SL, config.align.scoring),
+                out_dims=(1, 0))))
     allp = torch.cat([p.reshape(-1) for _, p, _ in pending]).cpu().numpy()
     alle = torch.cat([e.reshape(-1) for _, _, e in pending]).cpu().numpy()
     qs_walk = np.zeros(n, np.int64)

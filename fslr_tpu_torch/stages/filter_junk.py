@@ -13,7 +13,9 @@ decisions, counters and output file:
 
 Survivors go to ``{out}/{name}.{uuid}.filtered_junk.fq`` as repeat-masked
 FASTA records (repeats lowercase).  Batches are cut to bound device
-memory only; rows are independent, so no batch is padded.
+memory only; rows are independent, so no batch is padded.  The mask and
+gate, the rep score and the concatemer scan go through
+``parallel.dispatch.dp_call`` (row shards over the active mesh).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from fslr_tpu_torch.encode import bucket_length, encode, revcomp
 from fslr_tpu_torch.io.fastq import read_reads, records_to_arrays
 from fslr_tpu_torch.ops import kmer_stats, ssw, tantan
 from fslr_tpu_torch.panel import PrimerPanel
+from fslr_tpu_torch.parallel import dispatch
 
 _HMM_ROWS_X_LEN = 1 << 21      # rows x length per repeat-mask batch
 _WINDOW_CHUNK = 8192           # concatemer windows per SW call
@@ -82,6 +85,13 @@ def _pack_mask(m):
     return (m.reshape(N, L8 // 8, 8) * w).sum(dim=2, dtype=torch.uint8)
 
 
+def _mask_gate_packed(seq, lens, cfg):
+    """Bit-packed repeat mask and junk gate of one batch (one function,
+    so that a mesh shards them as one call)."""
+    m = tantan.repeat_mask(seq, lens, cfg)
+    return _pack_mask(m), kmer_stats.junk_gates(seq, lens, m, cfg)
+
+
 def _upload(device, *arrays):
     return [torch.from_numpy(np.ascontiguousarray(a)).to(device)
             for a in arrays]
@@ -114,9 +124,8 @@ def filter_junk_records(reads, panel: PrimerPanel, config: PipelineConfig,
         for off in range(0, len(idxs), step):
             part = idxs[off:off + step]
             seq, lens = _upload(device, *_batch_rows(reads, part, L))
-            m = tantan.repeat_mask(seq, lens, cfg)
-            pending.append((part, L, _pack_mask(m),
-                            kmer_stats.junk_gates(seq, lens, m, cfg)))
+            pending.append((part, L, *dispatch.dp_call(
+                _mask_gate_packed, (seq, lens), statics=(cfg,))))
             instrument.add_cells(2 * 100 * len(part) * L, 'hmm')
     gate = np.zeros(n, dtype=bool)
     if pending:
@@ -156,8 +165,8 @@ def filter_junk_records(reads, panel: PrimerPanel, config: PipelineConfig,
                 for r in range(len(part)):
                     m[r, :lw[r]] = flat_mask[starts[r]:starts[r] + lw[r]]
                 seq, lens, m = _upload(device, seq, lens, m)
-                rep_pending.append(
-                    (part, kmer_stats.junk_blocks(seq, lens, m, cfg)))
+                rep_pending.append((part, dispatch.dp_call(
+                    kmer_stats.junk_blocks, (seq, lens, m), statics=(cfg,))))
         flat_j = torch.cat([j for (_, j) in rep_pending]).cpu().numpy()
         junk[np.concatenate([p for (p, _) in rep_pending])] = flat_j
 
@@ -207,8 +216,9 @@ def filter_junk_records(reads, panel: PrimerPanel, config: PipelineConfig,
                 t[r, :wl_l[r]] = reads.codes[st_l[r]:st_l[r] + wl_l[r]]
             q, t, tlens = _upload(device, qrows[wr_q[sl]], t,
                                   wl.astype(np.int32))
-            scores.append(ssw.sw_max_packed(q, t, tlens, config.scoring,
-                                            stride)[0])
+            scores.append(dispatch.dp_call(
+                ssw.sw_max_packed, (q, t, tlens),
+                statics=(config.scoring, stride))[0])
             instrument.add_cells(int(wl.sum()) * 128, 'sw_concat')
         flat_s = torch.cat(scores).cpu().numpy()
         concat[wr_i[flat_s >= cfg.concatemer_score]] = True

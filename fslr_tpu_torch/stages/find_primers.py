@@ -6,6 +6,8 @@ target, orientation) is aligned (ops/ssw.sw_locate) against the first
 and the last min(len/2, 500) bp of every read, and the |P|^2 * 4 pair
 scores are combined on the host.  Ties between equal pair sums take the
 last pair in panel order, orientation combos [(F,R), (R,F), (F,F), (R,R)].
+The SW calls go through ``parallel.dispatch.dp_call`` (row shards over
+the active mesh).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from fslr_tpu_torch.io.fastq import (FastxRecord, read_reads,
                                      records_to_arrays)
 from fslr_tpu_torch.ops import ssw
 from fslr_tpu_torch.panel import PrimerPanel
+from fslr_tpu_torch.parallel import dispatch
 
 ORIENT_COMBOS = (('F', 'R'), ('R', 'F'), ('F', 'F'), ('R', 'R'))
 _SW_KEYS = ('score', 'target_begin', 'target_end')
@@ -57,8 +60,9 @@ def _align_side(reads, targets, window, scoring, side: str, device):
     outs = []
     for o in range(0, n * m, _SW_CHUNK):
         sl = slice(o, o + _SW_CHUNK)
-        res = ssw.sw_locate(q_all[sl], t_all[sl], ql_all[sl], tl_all[sl],
-                            scoring)
+        res = dispatch.dp_call(
+            ssw.sw_locate, (q_all[sl], t_all[sl], ql_all[sl], tl_all[sl]),
+            statics=(scoring,))
         outs.append(torch.stack([res[k].float() for k in _SW_KEYS]))
     instrument.add_cells(int(np.tile(qlen1, n).astype(np.int64)
                              @ np.repeat(space, m)), 'sw_primer')

@@ -1,7 +1,8 @@
 """fslr_tpu_torch.cli on the CPU: it builds the PipelineConfig that
-fslr_tpu's click CLI builds from the same options, runs the golden
-scenario to the same artifacts as run_pipeline, and refuses what the port
-cannot run before it writes anything."""
+fslr_tpu's click CLI builds from the same options and the mesh of
+--mesh-devices, runs the golden scenario to the same artifacts as
+run_pipeline, and refuses what the port cannot run before it writes
+anything."""
 
 import dataclasses
 import gzip
@@ -12,6 +13,7 @@ import torch
 
 from fslr_tpu_torch import cli
 from fslr_tpu_torch.config import PipelineConfig
+from fslr_tpu_torch.parallel.mesh import Mesh
 from fslr_tpu_torch.pipeline import run_pipeline
 from tests.test_golden_snapshot import _build
 from tests.test_torch_env import _card_defaults
@@ -108,12 +110,28 @@ def test_config_equals_fslr_tpu_cli(golden, monkeypatch, extra):
     import fslr_tpu.pipeline
     from fslr_tpu.cli import pipeline
     _, ref, fq = golden
-    argv = _argv('out', ref, fq, *extra)
+    argv = _argv('out', ref, fq, *extra, '--mesh-devices', '1')
     seen = {}
     monkeypatch.setattr(fslr_tpu.pipeline, 'run_pipeline',
                         lambda config, mesh=None: seen.update(c=config))
-    res = CliRunner().invoke(pipeline, argv + ['--mesh-devices', '1'])
+    res = CliRunner().invoke(pipeline, argv)
     assert res.exit_code == 0, res.output
     got = cli.config_from_args(cli._parser().parse_args(argv))
     # fslr_tpu's settings, but for those the port sets for its card
     assert dataclasses.asdict(got) == _card_defaults(seen['c'])
+
+
+@pytest.mark.parametrize('n,want', [('2', 2), ('1', None), ('0', None)])
+def test_mesh_devices_on_the_cpu(golden, monkeypatch, n, want):
+    """--mesh-devices n with --device cpu hands run_pipeline a mesh of n
+    CPU entries; 1, and 0 (all visible devices: the CPU is one), none."""
+    import fslr_tpu_torch.pipeline
+    _, ref, fq = golden
+    seen = {}
+    monkeypatch.setattr(
+        fslr_tpu_torch.pipeline, 'run_pipeline',
+        lambda config, device, mesh=None: seen.update(d=device, m=mesh))
+    cli.main(_argv('out', ref, fq, '--device', 'cpu', '--mesh-devices', n))
+    assert seen['d'] == torch.device('cpu')
+    assert seen['m'] == (Mesh((torch.device('cpu'),) * want) if want
+                         else None)

@@ -11,6 +11,7 @@ the main path's full shapes.
 
 import gzip
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -119,14 +120,12 @@ def test_sw_kernels_order_rows_by_descending_target_length(card, packed):
     q, t, qlens, tlens = _on(card, q, t, qlens, tlens)
     sc = ssw._sw_scores(**ssw._scores(ScoringConfig()))
     score, end, col, order = ssw._sw_outputs(B, card)
-    ptrs = (score.data_ptr(), end.data_ptr(), col.data_ptr())
     if packed:
-        kernels.SW_PACKED.launch(q.data_ptr(), t.data_ptr(), tlens.data_ptr(),
-                                 order.data_ptr(), B, T, 32, *sc, *ptrs)
+        kernels.SW_PACKED.launch(q, t, tlens, order, B, T, 32, *sc, score,
+                                 end, col)
     else:
-        kernels.SW.launch(q.data_ptr(), t.data_ptr(), qlens.data_ptr(),
-                          tlens.data_ptr(), order.data_ptr(), B, T, *sc,
-                          *ptrs)
+        kernels.SW.launch(q, t, qlens, tlens, order, B, T, *sc, score, end,
+                          col)
     o = order.cpu().long()
     assert sorted(o.tolist()) == list(range(B))
     keys = tlens.cpu().long().clamp(0, min(T, 4095))[o]
@@ -654,3 +653,88 @@ def test_scale_path_card_equals_cpu(card, case):
     assert _graph(data, card, **kw) == (want, 'in-HBM')
     assert _graph(data, card, enum_spill_min_encounters=1, **kw) == \
         (want, 'spill')
+
+
+def _sw_rows(n, seed=5):
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, 4, (n, 128)).astype(np.uint8)
+    t = rng.integers(0, 4, (n, 400)).astype(np.uint8)
+    t[:, 100:160] = q[:, :60]
+    return (q, t, rng.integers(20, 129, n).astype(np.int32),
+            rng.integers(100, 401, n).astype(np.int32))
+
+
+def test_launch_runs_on_the_current_device(card):
+    """A kernel launched from a thread that never chose a device, on
+    tensors of torch.cuda.current_device(): it runs there (equal to the
+    plain version) and counts once."""
+    dev = torch.device('cuda', torch.cuda.current_device())
+    q, t, qlens, tlens = (torch.from_numpy(a) for a in _sw_rows(64))
+    want = ssw.sw_max(q, t, qlens, tlens, ScoringConfig())
+    box = {}
+
+    def run():
+        kernels.reset_launches()
+        box['got'] = ssw.sw_max(*(x.to(dev) for x in (q, t, qlens, tlens)),
+                                ScoringConfig())
+        torch.cuda.synchronize(dev)
+        box['launches'] = kernels.launch_counts()['sw_kernel']
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    _assert_equal(box['got'], want)
+    assert box['launches'] == 1
+
+
+def test_dp_call_shards_enter_their_device(card):
+    """dp_call on a mesh of two entries on the card: each shard runs on a
+    pool thread with the card current, and the outputs equal the plain
+    call's (9 rows: padding to 10)."""
+    from fslr_tpu_torch.parallel import dispatch
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    dev = torch.device('cuda', torch.cuda.current_device())
+    args = [torch.from_numpy(a).to(dev) for a in _sw_rows(9)]
+    seen = []
+
+    def fn(q, t, qlens, tlens, sc):
+        seen.append((threading.current_thread().name,
+                     torch.cuda.current_device(), q.device))
+        return ssw.sw_locate(q, t, qlens, tlens, sc)
+
+    want = ssw.sw_locate(*args, ScoringConfig())
+    with dispatch.use_mesh(Mesh((dev, dev))):
+        got = dispatch.dp_call(fn, args, statics=(ScoringConfig(),))
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+    assert len(seen) == 2
+    assert all(n.startswith('dp') and i == dev.index and d == dev
+               for n, i, d in seen)
+
+
+@pytest.mark.parametrize('consensus', [False, True], ids=['slice', 'consensus'])
+def test_mesh_of_two_equals_one_device(card, tmp_path, consensus):
+    """run_pipeline (exact CIGARs) on a mesh of two entries on the card
+    gives the artifacts of the one-device run, BAM included."""
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.pipeline import run_pipeline
+    ref, fq = make_dataset(str(tmp_path), 60, 3)
+    dev = torch.device('cuda', torch.cuda.current_device())
+    bases = []
+    for tag, mesh in (('one', None), ('mesh', Mesh((dev, dev)))):
+        out = str(tmp_path / tag)
+        run_pipeline(PipelineConfig(name='D', out=out, ref=ref,
+                                    primers=('21q1', '17p6'), basecalled=fq,
+                                    skip_clustering=not consensus,
+                                    run_consensus=consensus), card,
+                     mesh=mesh)
+        bases.append(os.path.join(out, 'D'))
+    suffixes = ['.mappings.bed', '.filter_counts_summary.csv',
+                '.without_primers.fq', '.bwa_dodi.bam', '.bwa_dodi.bam.bai']
+    if consensus:
+        suffixes += ['.mappings.cluster.bed', '.mappings.representative.bed',
+                     '.mappings_merged.bed', '.bwa_dodi_merged.bam']
+    for suffix in suffixes:
+        with open(bases[0] + suffix, 'rb') as a, \
+                open(bases[1] + suffix, 'rb') as b:
+            assert a.read() == b.read(), suffix

@@ -17,6 +17,7 @@ import torch
 from fslr_tpu.config import PipelineConfig as JaxPipelineConfig
 from fslr_tpu.pipeline import run_pipeline as jax_run_pipeline
 from fslr_tpu_torch.config import BatchConfig, PipelineConfig
+from fslr_tpu_torch.parallel.mesh import Mesh
 from fslr_tpu_torch.pipeline import run_pipeline
 from tests.test_golden_snapshot import GOLDEN, _build
 
@@ -146,14 +147,13 @@ def test_timings_written(golden_runs):
             'bam_write', 'mapping_table'} <= set(stages['timings_s'])
 
 
-@pytest.mark.parametrize('kw', [
-    dict(skip_alignment=True), dict(n_processes=2)],
-    ids=['skip_alignment', 'n_processes'])
-def test_settings_outside_the_slice_raise(tmp_path, kw):
+def test_mesh_must_start_at_device(tmp_path):
+    """A mesh's first device is where every sharded output gathers: it
+    must be the run's device, or the run raises before it writes."""
     config = PipelineConfig(name='X', out=str(tmp_path / 'out'),
                             skip_clustering=True, exact_cigars=False)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md'):
-        run_pipeline(config.replace(**kw), CPU)
+    with pytest.raises(ValueError, match='mesh starts at meta'):
+        run_pipeline(config, CPU, mesh=Mesh((torch.device('meta'), CPU)))
     assert not os.path.exists(config.out)
 
 
