@@ -13,8 +13,9 @@ Phases (each raises on failure; the exit code is then not 0):
 3. kernel checks: every kernel against its plain PyTorch version on the
    card, at the main path's shapes, from seeded inputs -- the DP kernels
    (banded and tb in both their thread layouts, the SW kernels and prof
-   also on their edge cases) and the traceback walk (also on its edge
-   cases) must match exactly (tb and profile codes in the words that
+   also on their edge cases, sw_kernel also at T = 3072 on rows shaped
+   like the fused step's concatemer grid) and the traceback walk (also on
+   its edge cases) must match exactly (tb and profile codes in the words that
    hold a row's query steps; the kernels zero the rest), the
    repeat mask may differ in at most 1 decision in 10^6 and only where
    the plain posterior lies within 1e-4 of the threshold; both times are
@@ -98,11 +99,27 @@ Phases (each raises on failure; the exit code is then not 0):
     It prints a JSON line with each run's wall time and reads/s and the
     card's name and power limit.
 
+11. step (run before human-3g): the fused device step
+    (``parallel.step.make_device_step``) on slice-10k's 10,000 reads as
+    one batch at L = 3072 with the whole 6-primer panel
+    (``tools.synth.step_inputs``): mask_kernel, sw_kernel, tb_kernel and
+    walk_kernel must each be launched, no other kernel; on a seeded
+    subset of 512 reads its outputs must equal the plain PyTorch
+    versions' on the card exactly (a junk flag may differ only on a read
+    where a mask decision differs under phase 3's rule); the step on the
+    mesh (cuda:0, cuda:0) (``make_sharded_step``) must equal the single
+    step on all 10,000 reads, counters included.  It prints a JSON line
+    with the wall time (one warm-up call, then the median of 3), reads/s,
+    the peak device memory, the launches per kernel, one call's device
+    time by kernel under torch.profiler and the card's name and power
+    limit.
+
 The line before the last is a JSON object with each kernel's launches on
 the consensus run (``launches``), on human-3g's cold run
-(``launches_human_3g``), on the mesh run (``launches_mesh``) and summed
-over the two processes (``launches_two_processes``), error, times and
-bound; the last line is {"ok": true, "device": {...}}.
+(``launches_human_3g``), on the mesh run (``launches_mesh``), summed
+over the two processes (``launches_two_processes``) and in the fused
+step (``launches_step``), error, times and bound; the last line is
+{"ok": true, "device": {...}}.
 
 Not run by default: ``sweep_layouts`` times both layouts of the banded
 and tb kernels on every launch of the slice and consensus runs,
@@ -187,6 +204,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
 SLICE_PATH = ('mask_kernel', 'sw_packed_kernel', 'sw_kernel',
               'banded_kernel', 'tb_kernel', 'walk_kernel')
 EARLIER_PATH = SLICE_PATH[:4]
+# the fused device step (phase 11): one batch of slice-10k's reads
+STEP_PATH = ('mask_kernel', 'sw_kernel', 'tb_kernel', 'walk_kernel')
+STEP_L, STEP_SUBSET, STEP_REPS = 3072, 512, 3
 
 # The least time the card could take: the larger of operations over the
 # float32 CUDA-core peak and bytes (inputs read once, outputs written
@@ -422,6 +442,31 @@ def sw_packed_edge_inputs(B, stride, T=400, seed=22):
 
 
 SW_EDGE_ROWS = (1, 3, 5, 301)
+SW_GRID_ROWS = (5, 301, 6144)     # 6,144 = the step's 512 reads x 12 primers
+
+
+def sw_grid_inputs(B, T=3072, seed=24):
+    """(q, t, qlens, tlens) shaped like the fused step's concatemer grid:
+    primer-length queries (20-23 bases) against read windows of T codes;
+    a third of the rows have tlen 0 (reads shorter than the two end
+    trims), a third a short tlen (1-149) and the rest up to T; mutated
+    copies of the query are planted in every other row, some past the
+    row's length."""
+    rng = np.random.default_rng(seed + B)
+    q = np.full((B, 128), 4, np.uint8)
+    qlens = rng.integers(20, 24, B).astype(np.int32)
+    t = rng.integers(0, 4, (B, T)).astype(np.uint8)
+    kind = np.arange(B) % 3
+    tlens = np.where(kind == 0, 0, np.where(
+        kind == 1, rng.integers(1, 150, B),
+        rng.integers(150, T + 1, B))).astype(np.int32)
+    for r in range(B):
+        q[r, :qlens[r]] = rng.integers(0, 4, qlens[r])
+        if r % 2:
+            c = _mutated_copy(rng, q[r, :qlens[r]])
+            p = int(rng.integers(0, T - len(c)))
+            t[r, p:p + len(c)] = c
+    return q, t, qlens, tlens
 PROF_EDGE_ROWS = (1, 3, 5, 33)
 PROF_EDGE_WIDTHS = (128, 3072)
 
@@ -545,11 +590,17 @@ def check_prof_walk_edges(dev) -> int:
 
 def check_sw_edges(dev) -> int:
     """Both SW kernels on their edge cases, at row counts that are not
-    multiples of a warp's rows, with both scorings: exact.  Returns the
-    number of launches checked."""
+    multiples of a warp's rows, with both scorings, and sw_kernel at
+    T = 3072 on rows shaped like the fused step's concatemer grid: exact.
+    Returns the number of launches checked."""
     checked = 0
     for sc in (ScoringConfig(), ScoringConfig(gap_open_is_first_base=False)):
         kw = ssw._scores(sc)
+        for B in SW_GRID_ROWS:
+            args = [torch.from_numpy(a).to(dev) for a in sw_grid_inputs(B)]
+            _exact(f'sw_kernel ({B} rows, T 3072)',
+                   ssw._sw_cuda(*args, **kw), ssw._sw_torch(*args, **kw))
+            checked += 1
         for B in SW_EDGE_ROWS:
             args = [torch.from_numpy(a).to(dev) for a in sw_edge_inputs(B)]
             _exact(f'sw_kernel ({B} rows)', ssw._sw_cuda(*args, **kw),
@@ -1467,6 +1518,168 @@ def run_parallel(dev, root, slice_ref, slice_fq, smi) -> dict:
     return dict(mesh=mesh_launches, two_processes=two_launches)
 
 
+def _plain(fn):
+    """``fn()`` with every kernel wrapper taking its plain PyTorch version
+    on the card's tensors (``kernels.on_card`` answers False)."""
+    on_card = kernels.on_card
+    kernels.on_card = lambda x: False
+    try:
+        return fn()
+    finally:
+        kernels.on_card = on_card
+
+
+def _same_step(got, want, what, junk_may_differ=()):
+    """Every output of two step runs equal, counters included; a junk
+    flag may differ only on the rows ``junk_may_differ`` (and then the
+    counters are not compared)."""
+    junk = set(torch.nonzero(got['junk'] != want['junk']).flatten()
+               .tolist())
+    if not junk <= set(junk_may_differ):
+        raise AssertionError(f'{what}: junk differs on rows '
+                             f'{sorted(junk)[:10]}')
+    for key, w in want.items():
+        if key not in ('junk', 'counters') and not torch.equal(got[key], w):
+            raise AssertionError(f'{what}: {key} differs in '
+                                 f'{int((got[key] != w).sum())} values')
+    if not junk:
+        for k, c in want['counters'].items():
+            if int(got['counters'][k]) != int(c):
+                raise AssertionError(f'{what}: counter {k} '
+                                     f'{int(got["counters"][k])} != {int(c)}')
+
+
+# CUDA kernel names (as the profiler shows them) of each kernel of the
+# step: sw_kernel's C entry also launches its row-order kernel
+STEP_KERNEL_NAMES = {'mask_kernel': ('mask_kernel',),
+                     'sw_kernel': ('sw_dp', 'order_rows'),
+                     'tb_kernel': ('banded_dp',),
+                     'walk_kernel': ('walk_kernel',)}
+
+
+def _profile_step(fn) -> dict:
+    """One ``fn()`` under torch.profiler (CPU and CUDA activities): its
+    wall ms, the union of its device events (busy ms), the device ms of
+    each kernel of the step and of everything else (torch's own kernels,
+    copies and sets), and the eight largest other device consumers."""
+    from fslr_tpu_torch.tools.profile_run import _union_us
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    by = dict.fromkeys([*STEP_KERNEL_NAMES, 'other'], 0.0)
+    other: dict = {}
+    for e in events:
+        ms = (e.time_range.end - e.time_range.start) / 1e3
+        group = next((k for k, names in STEP_KERNEL_NAMES.items()
+                      if any(n in e.name for n in names)), 'other')
+        by[group] += ms
+        if group == 'other':
+            other[e.name[:80]] = other.get(e.name[:80], 0.0) + ms
+    top = sorted(other.items(), key=lambda x: -x[1])[:8]
+    busy = _union_us((e.time_range.start, e.time_range.end)
+                     for e in events) / 1e3
+    return dict(wall_ms=wall_ms, device_busy_ms=busy,
+                device_busy_share=busy / wall_ms, device_ms=by,
+                top_other_device_ms=dict(top))
+
+
+def run_step(dev, ref_path, fq_dir, smi) -> dict:
+    """Phase 11: the fused device step on slice-10k's reads at L = 3072
+    (one warm-up call with the launch counts read after it, then the
+    median of three), a seeded subset against the plain versions on the
+    card, and the mesh (dev, dev) against one device.  Returns the
+    warm-up call's launch counts."""
+    from fslr_tpu_torch.io.fastq import read_fastx
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.parallel.step import (make_device_step,
+                                              make_sharded_step)
+    from fslr_tpu_torch.tools.synth import step_inputs
+    t0 = time.perf_counter()
+    seqs = [r.sequence for f in sorted(os.listdir(fq_dir))
+            for r in read_fastx(os.path.join(fq_dir, f))]
+    args = step_inputs(ref_path, seqs, STEP_L, dev)
+    torch.cuda.synchronize()
+    t_inputs = time.perf_counter() - t0
+    n, NP = len(seqs), int(args[2].shape[0])
+    config = PipelineConfig()
+    n_seed = (STEP_L - config.align.seed_k) // config.align.seed_stride + 1
+    step = make_device_step(config, NP, STEP_L, n_seed)
+    out = {}
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    warm, launches = _timed(lambda: out.update(step(*args)), STEP_PATH,
+                            'the fused step')
+    peak = torch.cuda.max_memory_allocated()
+    others = [k for k in KERNELS if k not in STEP_PATH and launches[k]]
+    if others:
+        raise AssertionError(f'the fused step launched {others}')
+    counts = {k: int(v) for k, v in out['counters'].items()}
+    if counts['total_kept'] + counts['total_dropped'] != n or \
+            counts['aligned_segments'] < n:
+        raise AssertionError(f'the fused step: counters {counts}')
+    walls = []
+    for _ in range(STEP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = step(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _same_step(again, out, 'the fused step called again')
+    del again
+    wall = float(np.median(walls))
+    profile = _profile_step(lambda: step(*args))
+
+    # a seeded subset: the kernels against the plain versions on the card
+    rows = torch.from_numpy(np.sort(np.random.default_rng(11).choice(
+        n, STEP_SUBSET, replace=False))).to(dev)
+    sub = (args[0][rows].contiguous(), args[1][rows].contiguous(),
+           *args[2:])
+    got = step(*sub)
+    want = _plain(lambda: step(*sub))
+    cfg = config.junk
+    post_k = tantan._posterior_cuda(sub[0], cfg)
+    post_p = tantan._posterior_torch(sub[0], cfg)
+    thr = cfg.mask_posterior_threshold
+    inside = ((torch.arange(STEP_L, device=dev)[None, :] < sub[1][:, None])
+              & (sub[0] != 4))
+    differ = ((post_k >= thr) != (post_p >= thr)) & inside
+    n_diff = int(differ.sum())
+    if n_diff > STEP_SUBSET * STEP_L // 1_000_000 or (n_diff and float(
+            (post_p[differ] - thr).abs().max()) > 1e-4):
+        raise AssertionError(f'the fused step: {n_diff} mask decisions '
+                             'differ beyond phase 3\'s rule')
+    _same_step(got, want, f'the fused step on {STEP_SUBSET} reads, card '
+               'against plain', torch.nonzero(differ.any(1)).flatten()
+               .tolist())
+    del got, want, post_k, post_p
+
+    # the mesh of two entries on this card against one device
+    mesh = Mesh((dev, dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sharded = make_sharded_step(mesh, config, NP, STEP_L, n_seed)(*args)
+    torch.cuda.synchronize()
+    mesh_wall = time.perf_counter() - t0
+    _same_step(sharded, out, f'the fused step on the mesh {mesh.devices}')
+    del sharded, out
+    report = dict(
+        phase='step', card=smi.splitlines()[0], reads=n, L=STEP_L,
+        primer_rows=NP, inputs_s=t_inputs, warmup_s=warm, walls_s=walls,
+        wall_s=wall, reads_per_s=n / wall, peak_bytes=peak,
+        step_peak_bytes=peak - held, launches=launches, counters=counts,
+        subset_reads=STEP_SUBSET, mask_decisions_differing=n_diff,
+        mesh_wall_s=mesh_wall, profile=profile)
+    print('step: ' + json.dumps(report))
+    return launches
+
+
 def _index_bytes(ref_path, lengths, k) -> list:
     """Device bytes of each shard's genome codes, int32 counts and
     positions, from the cache the cold run wrote."""
@@ -1974,12 +2187,14 @@ def main():
         launches = run_consensus(dev, root)
         cross_check(dev, root)
         parallel = run_parallel(dev, root, *slice_data, smi)
+        step = run_step(dev, *slice_data, smi)
         human = run_human(dev, root)
     print(json.dumps({'kernels': [
         dict(name=name, route='cuda', source=src, replaces=rep,
              launches=launches[name], launches_human_3g=human[name],
              launches_mesh=parallel['mesh'][name],
              launches_two_processes=parallel['two_processes'][name],
+             launches_step=step[name],
              max_abs_err=checks[name]['max_abs_err'],
              ms=checks[name]['ms'], plain_ms=checks[name]['plain_ms'],
              bound_ms=checks[name]['bound_ms'],

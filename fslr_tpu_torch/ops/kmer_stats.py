@@ -111,9 +111,11 @@ def junk_gates(seq, lens, mask, cfg: JunkFilterConfig):
     return gate.any(dim=1)
 
 
-def junk_blocks(seq, lens, mask, cfg: JunkFilterConfig):
-    """Per-read (B,) bool junk decision from the repeat mask."""
-    junk, _ = junk_blocks_debug(seq, lens, mask, cfg)
+def junk_blocks(seq, lens, mask, cfg: JunkFilterConfig, tel_table=None):
+    """Per-read (B,) bool junk decision from the repeat mask;
+    ``tel_table``: the (5^6,) bool telomere 6-mer table to use (default
+    :func:`telomere_table`)."""
+    junk, _ = junk_blocks_debug(seq, lens, mask, cfg, tel_table)
     return junk
 
 
@@ -122,7 +124,8 @@ def _segment_sum(vals, seg, R):
         .index_add_(0, seg, vals)
 
 
-def junk_blocks_debug(seq, lens, mask, cfg: JunkFilterConfig):
+def junk_blocks_debug(seq, lens, mask, cfg: JunkFilterConfig,
+                      tel_table=None):
     """Junk decision plus per-run (blen, tel_pct, rep, read_id, start)."""
     B, L = seq.shape
     dev = seq.device
@@ -152,7 +155,8 @@ def junk_blocks_debug(seq, lens, mask, cfg: JunkFilterConfig):
     # telomere content per block
     c6 = _kmer_codes_2d(seq, 6)
     valid6 = mask & (rid2d == _shift_in(rid2d, 5, trash))
-    table = torch.as_tensor(telomere_table(6), device=dev)
+    table = torch.as_tensor(telomere_table(6) if tel_table is None
+                            else tel_table, device=dev).bool()
     member = table[c6.long()] & valid6
     tel_cnt = _segment_sum(member.reshape(-1).to(_I32), flat_rid, R)
     tel_pct = tel_cnt.float() / torch.clamp_min(blen - 5, 1).float()

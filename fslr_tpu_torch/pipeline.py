@@ -319,7 +319,8 @@ def _run_pipeline_multiprocess(config: PipelineConfig, device: torch.device):
     # tables reproduces the one-process order
     mapping_table.write_mappings_bed(
         mapping_table.sort_table(mapping_table.concat_tables(
-            [cluster.read_mappings(p + '.mappings.bed') for p in parts])),
+            [cluster.read_mappings(p + '.mappings.bed', engine='c')
+             for p in parts])),
         f'{base}.mappings.bed')
     _merge_bams_streamed([p + '.bwa_dodi.bam' for p in parts],
                          f'{base}.bwa_dodi.bam')
@@ -367,7 +368,8 @@ def _run_pipeline(config: PipelineConfig, device: torch.device,
     if not config.skip_clustering:
         print('Making clusters')
         with stage('read_mappings'):
-            bed = cluster.read_mappings(f'{basename}.mappings.bed')
+            bed = cluster.read_mappings(f'{basename}.mappings.bed',
+                                        engine='pyarrow')
             chr_lengths = bamio.get_chromosome_lengths(
                 f'{basename}.bwa_dodi.bam')
         with stage('clustering'):

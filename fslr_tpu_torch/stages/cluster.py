@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import csv
 import dataclasses
+import re
 import sys
 import time
 from collections import namedtuple
@@ -60,31 +61,115 @@ def _take(bed: dict, idx) -> dict:
     return {k: v[idx] for k, v in bed.items()}
 
 
-def _parse_column(cells: list[str]) -> np.ndarray:
-    """One TSV column typed as pandas infers it: int64, float64 (ints with
-    empty cells too), else strings; empty cells are NaN."""
-    full = [c for c in cells if c != '']
-    for conv in (int, float):
-        try:
-            vals = [conv(c) for c in full]
-        except ValueError:
-            continue
-        if conv is int and len(full) == len(cells):
-            return np.array(vals, np.int64)
-        return np.array([float(c) if c != '' else np.nan for c in cells],
-                        np.float64)
+# pandas' default NA tokens (pandas._libs.parsers.STR_NA_VALUES): both of
+# its engines read these cells, exactly as written, as missing
+NA_TOKENS = frozenset((
+    '', '#N/A', '#N/A N/A', '#NA', '-1.#IND', '-1.#QNAN', '-NaN', '-nan',
+    '1.#IND', '1.#QNAN', '<NA>', 'N/A', 'NA', 'NULL', 'NaN', 'None', 'n/a',
+    'nan', 'null'))
+ENGINES = ('c', 'pyarrow')
+_DEC = r'(?:[0-9]+\.?[0-9]*|\.[0-9]+)(?:[eE][+-]?[0-9]+)?|inf(?:inity)?'
+# per engine: integer and float cells (ASCII digits only, spaces around a
+# number allowed), and the boolean tokens
+_INT = {'c': re.compile(r' *[+-]?[0-9]+ *'),
+        'pyarrow': re.compile(r' *(?:-?[0-9]+|0[xX][0-9a-fA-F]+) *')}
+_FLOAT = {'c': re.compile(r' *[+-]?(?:' + _DEC + r') *', re.I),
+          'pyarrow': re.compile(r' *[+-]?(?:' + _DEC
+                                + r'|nan(?:\([0-9a-z_]*\))?) *', re.I)}
+_PA_TRUE = frozenset(('True', 'TRUE', 'true', '1'))
+_PA_FALSE = frozenset(('False', 'FALSE', 'false', '0'))
+_I64 = (-2 ** 63, 2 ** 63 - 1)
+
+
+def _int_value(cell: str) -> int:
+    cell = cell.strip(' ')
+    return int(cell, 16) if cell[1:2] in ('x', 'X') else int(cell)
+
+
+def _float_value(cell: str) -> float:
+    cell = cell.strip(' ')
+    return float('nan') if cell.lower().lstrip('+-').startswith('nan') \
+        else float(cell)
+
+
+def _bool_value(cell: str, engine: str):
+    """True or False for a boolean token of ``engine``, else None (the C
+    engine takes 'true' and 'false' in any case; pyarrow takes three
+    spellings of each and 1 and 0)."""
+    if engine == 'c':
+        return {'true': True, 'false': False}.get(cell.lower())
+    return True if cell in _PA_TRUE else False if cell in _PA_FALSE \
+        else None
+
+
+def _parse_column(cells: list[str], engine: str = 'pyarrow') -> np.ndarray:
+    """One TSV column typed as ``pd.read_csv(sep='\\t', engine=engine)``
+    types it, for the C engine (``'c'``) or ``'pyarrow'``:
+
+    * a cell of ``NA_TOKENS`` is missing (NaN);
+    * int64 when every other cell is an integer: ASCII digits with an
+      optional sign (pyarrow: '-' only, or hexadecimal ``0x..``), spaces
+      around it allowed; float64 (NaN where missing) when some cell is
+      missing;
+    * else float64 when every other cell is a float (digits, a point, an
+      exponent, ``inf`` or ``infinity``; pyarrow also ``nan`` in any case);
+    * else bool when every other cell is a boolean token
+      (:func:`_bool_value`), objects True / False / NaN (pyarrow: None)
+      when some cell is missing;
+    * else strings, NaN where missing.
+
+    So '11_1', '1_000.5' and non-ASCII digits stay strings, as in pandas
+    (Python's ``int()`` and ``float()`` accept them).  The engines differ
+    on '+5' (C: int, pyarrow: float) and '0x10' (pyarrow: int 16, C: a
+    string).  Not followed: an integer beyond int64 is a float in pyarrow,
+    uint64 in the C engine when none is negative or missing, else a
+    string here (pandas may give Python ints); pyarrow's dates and times
+    stay strings.  A column without rows is int64."""
+    full = [c for c in cells if c not in NA_TOKENS]
+    missing = len(full) < len(cells)
+
+    def column(values, dtype):
+        if not missing:
+            return np.array(values, dtype)
+        it = iter(values)
+        fill = None if dtype is object and engine == 'pyarrow' else np.nan
+        out = np.empty(len(cells), dtype if dtype is object else np.float64)
+        out[:] = [fill if c in NA_TOKENS else next(it) for c in cells]
+        return out
+
+    all_int = all(_INT[engine].fullmatch(c) for c in full)
+    if all_int:
+        ints = [_int_value(c) for c in full]
+        if all(_I64[0] <= v <= _I64[1] for v in ints):
+            return column(ints, np.int64)
+        if engine == 'c' and not missing and min(ints) >= 0 \
+                and max(ints) < 2 ** 64:
+            return np.array(ints, np.uint64)
+    # pyarrow reads an integer beyond int64 as a float
+    if not (all_int and engine == 'c') and \
+            all(_FLOAT[engine].fullmatch(c) for c in full):
+        return column([_float_value(c) for c in full], np.float64)
+    if full and all(_bool_value(c, engine) is not None for c in full):
+        return column([_bool_value(c, engine) for c in full],
+                      bool if not missing else object)
     out = np.empty(len(cells), object)
-    out[:] = [c if c != '' else np.nan for c in cells]
+    out[:] = [np.nan if c in NA_TOKENS else c for c in cells]
     return out
 
 
-def read_mappings(path: str) -> dict:
-    """``{name}.mappings.bed`` as typed numpy columns."""
+def read_mappings(path: str, engine: str = 'pyarrow') -> dict:
+    """``{name}.mappings.bed`` as typed numpy columns, as
+    ``pd.read_csv(path, sep='\\t', engine=engine)`` types them
+    (:func:`_parse_column`): clustering reads it as fslr_tpu does, with
+    ``'pyarrow'``; the merges of a multi-process run and of the consensus
+    stage with the C engine (``'c'``)."""
+    if engine not in ENGINES:
+        raise ValueError(f'engine {engine!r}: one of {ENGINES}')
     with open(path, newline='') as fh:
         rows = list(csv.reader(fh, delimiter='\t'))
     header, body = rows[0], rows[1:]
     cols = list(zip(*body)) if body else [()] * len(header)
-    return {h: _parse_column(list(c)) for h, c in zip(header, cols)}
+    return {h: _parse_column(list(c), engine) for h, c in zip(header, cols)}
 
 
 def _first_index(keys: np.ndarray):

@@ -245,7 +245,7 @@ def run_consensus_stage(subgraphs, bed: dict, ref, didx,
     # has them, plus the consensus reads' rows
     cons = mapping_table.mapping_table(aln, qnames, seqs, ref.names,
                                        config.regions, panel.seqs)
-    orig = cluster.read_mappings(f'{basename}.mappings.bed')
+    orig = cluster.read_mappings(f'{basename}.mappings.bed', engine='c')
     keep = np.array([q not in clustered for q in orig['qname'].tolist()],
                     bool)
     merged = {k: np.concatenate([v[keep], cons[k]]) for k, v in orig.items()}

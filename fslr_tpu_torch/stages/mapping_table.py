@@ -201,3 +201,98 @@ def write_mappings_bed(table: dict, path: str):
         w = csv.writer(fh, delimiter='\t', lineterminator='\n')
         w.writerow(list(table))
         w.writerows(zip(*(_cells(v) for v in table.values())))
+
+
+# ---------------------------------------------------------------------------
+# Standalone mode: BAM -> mappings.bed (the reference's collect_mapping_info
+# --bam; fslr_tpu.stages.mapping_table.mapping_table_from_bam)
+# ---------------------------------------------------------------------------
+
+def _clip_query_span(cigar: list[tuple[int, str]]):
+    """(qstart, qend, qlen) in record orientation from the CIGAR's clips,
+    hard clips included."""
+    qlen = sum(n for n, op in cigar if op in 'MIS=XH')
+    start = cigar[0][0] if cigar and cigar[0][1] in 'SH' else 0
+    end = qlen - (cigar[-1][0] if cigar and cigar[-1][1] in 'SH' else 0)
+    return start, end, qlen
+
+
+def mapping_table_from_bam(bam_path: str, regions_path: str | None = None,
+                           primers: dict[str, str] | None = None) -> dict:
+    """The mappings table of any BAM: host work only, no device.
+
+    Unmapped records (flag 4) are skipped.  Query spans come from the
+    CIGAR clips; ``rend`` = pos + max(reference span, 1) - 1 (0-based).
+    A read's primary is the first record with the largest AS among those
+    neither secondary (0x100) nor supplementary (0x800); its strand and
+    sequence give the read's forward sequence.  A read with no such
+    record raises ValueError.  ``primers`` (name -> primer sequence)
+    defaults to the shipped panel's."""
+    from fslr_tpu_torch.encode import revcomp_str
+    from fslr_tpu_torch.io import bam as bamio
+
+    names, _lengths, records = bamio.open_bam(bam_path)
+    read_of: dict[str, int] = {}
+    best: list = []          # per read: (AS, row, seq, reverse) or None
+    rows = []                # per record: read, contig, pos, rend, reverse,
+    #                          qstart, qend, qlen, mapq, AS
+    for a in records:
+        if a.flag & 4:
+            continue
+        g = read_of.setdefault(a.qname, len(read_of))
+        if g == len(best):
+            best.append(None)
+        score = a.tags.get('AS', 0)
+        rev = bool(a.flag & 16)
+        if not a.flag & 0x900 and (best[g] is None or score > best[g][0]):
+            best[g] = (score, len(rows), a.seq, rev)
+        rows.append((g, a.ref_id, a.pos,
+                     a.pos + max(a.reference_span(), 1) - 1, rev,
+                     *_clip_query_span(a.cigar), a.mapq, score))
+    qnames = list(read_of)
+    seqs = []
+    for g, b in enumerate(best):
+        if b is None:
+            raise ValueError(
+                f'{bam_path}: read {qnames[g]} has no primary-eligible '
+                f'alignment (all records secondary/supplementary)')
+        seqs.append(revcomp_str(b[2]) if b[3] else b[2])
+    cols = (np.array(rows, np.int64).reshape(-1, 10).T if rows
+            else np.zeros((10, 0), np.int64))
+    is_primary = np.zeros(len(rows), bool)
+    is_primary[[b[1] for b in best]] = True
+    i32 = np.int32
+    aln = Alignments(
+        read_idx=cols[0].astype(i32), chrom_idx=cols[1].astype(i32),
+        rstart=cols[2].astype(i32), rend=cols[3].astype(i32),
+        strand_rev=cols[4].astype(bool), qstart_o=cols[5].astype(i32),
+        qend_o=cols[6].astype(i32), qlen=cols[7].astype(i32),
+        mapq=cols[8].astype(i32), score=cols[9].astype(i32),
+        is_primary=is_primary, overlaps_region=np.zeros(len(rows), bool))
+    if primers is None:
+        from fslr_tpu_torch.panel import load_panel
+        primers = load_panel().seqs
+    return mapping_table(aln, qnames, seqs, names, regions_path, primers)
+
+
+def _main(argv=None):
+    """``python -m fslr_tpu_torch.stages.mapping_table BAM OUT
+    [--regions BED]``: a mappings.bed from a BAM, on the host (there is
+    no --device: this mode does no device work)."""
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog='python -m fslr_tpu_torch.stages.mapping_table',
+        description='Rebuild a mappings.bed from a BAM (the reference '
+                    'collect_mapping_info standalone mode).')
+    ap.add_argument('bam', help='BAM file to assess')
+    ap.add_argument('out', help='output bed/TSV path')
+    ap.add_argument('--regions', default=None,
+                    help='bed of regions for the overlaps_region column')
+    args = ap.parse_args(argv)
+    write_mappings_bed(mapping_table_from_bam(args.bam, args.regions),
+                       args.out)
+    print('Done')
+
+
+if __name__ == '__main__':
+    _main()

@@ -22,6 +22,9 @@ BED inside it, and two FASTQ files of three reads that lie in both.
 without a pipeline run (the data of ``bench.run_cluster_scale``): one
 interior interval a read, in breakpoint groups.
 
+``step_inputs`` gives the ten arguments of the fused device step
+(``parallel/step.py``) for a reference and a list of reads.
+
     python -m fslr_tpu_torch.tools.synth ROOT N_READS [N_GROUPS]
 """
 
@@ -205,6 +208,61 @@ def make_cluster_scale_data(n_reads: int, group: int = 700, seed: int = 7):
             for r, (s, e) in enumerate(zip(start, end))]
     data.sort(key=lambda it: it.start)
     return data
+
+
+def _padded(code_lists) -> tuple[np.ndarray, np.ndarray]:
+    """(n, 128) uint8 rows padded with 4, and their int32 lengths."""
+    rows = np.full((len(code_lists), 128), 4, np.uint8)
+    lens = np.zeros(len(code_lists), np.int32)
+    for i, c in enumerate(code_lists):
+        rows[i, :len(c)] = c
+        lens[i] = len(c)
+    return rows, lens
+
+
+def step_inputs(ref, seqs, L: int, device, primers=None):
+    """The ten arguments of ``parallel.step.make_device_step``'s step, as
+    ``__graft_entry__._example_inputs`` builds them, on ``device``: reads
+    ``seqs`` encoded at width ``L``, the panel's (``primers``: names,
+    default all) targets and primer sequences each in both orientations,
+    the telomere table, the genome codes of ``ref`` (a FASTA path, or a
+    uint8 code array taken as one contig) and its seed index (int32
+    counts and positions at the aligner's k, built on ``device``).  The
+    reference must fit one index shard."""
+    import torch
+
+    from fslr_tpu_torch.config import AlignConfig
+    from fslr_tpu_torch.encode import batch_encode, encode, revcomp
+    from fslr_tpu_torch.index.reference import (Reference,
+                                                build_seed_index,
+                                                load_reference)
+    from fslr_tpu_torch.ops.kmer_stats import telomere_table
+
+    device = torch.device(device)
+    if isinstance(ref, str):
+        ref = load_reference(ref)
+    else:
+        codes = np.asarray(ref, np.uint8)
+        ref = Reference(names=['chr1'], lengths=np.array([len(codes)]),
+                        offsets=np.array([0, len(codes)]), codes=codes)
+    sidx = build_seed_index(ref, AlignConfig().seed_k, device)
+    if sidx.shards:
+        raise ValueError('step_inputs: the reference needs a sharded '
+                         'index; the step takes one genome')
+    panel = load_panel()
+    if primers is not None:
+        panel = panel.subset(list(primers))
+    ptargets, ptlens = _padded([f(encode(panel.targets[n]))
+                                for n in panel.names
+                                for f in (np.asarray, revcomp)])
+    pseqs, pslens = _padded([f(encode(panel.seqs[n])) for n in panel.names
+                             for f in (np.asarray, revcomp)])
+    reads, lens = batch_encode(list(seqs), L)
+    arrays = (reads, lens, ptargets, ptlens, pseqs, pslens,
+              telomere_table(6), ref.codes, sidx.counts.astype(np.int32),
+              sidx.positions.astype(np.int32))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
 
 
 if __name__ == '__main__':

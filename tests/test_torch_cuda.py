@@ -105,6 +105,21 @@ def test_sw_kernels_edge_cases(card, B, sc):
         _assert_equal(ssw._sw_packed_cuda(*args, stride=stride, **kw), want)
 
 
+@pytest.mark.parametrize('sc', SCORINGS)
+@pytest.mark.parametrize('B', chip_smoke.SW_GRID_ROWS)
+def test_sw_kernel_at_3072_on_grid_rows(card, B, sc):
+    """sw_kernel at T = 3072 on rows shaped like the fused step's
+    concatemer grid: primer-length queries, a third of the rows with
+    tlen 0 and a third with a short tlen.  Exact."""
+    kw = ssw._scores(sc)
+    args = _on(card, *chip_smoke.sw_grid_inputs(B))
+    want = ssw._sw_torch(*args, **kw)
+    _assert_equal(ssw._sw_cuda(*args, **kw), want)
+    if B > 5:
+        assert float(want[0].max()) > 0
+        assert not bool(want[0][args[3] == 0].any())
+
+
 @pytest.mark.parametrize('packed', [False, True])
 def test_sw_kernels_order_rows_by_descending_target_length(card, packed):
     """The C entry points fill the order scratch with a permutation of the
@@ -738,3 +753,41 @@ def test_mesh_of_two_equals_one_device(card, tmp_path, consensus):
         with open(bases[0] + suffix, 'rb') as a, \
                 open(bases[1] + suffix, 'rb') as b:
             assert a.read() == b.read(), suffix
+
+
+def test_fused_step_card_equals_plain(card, tmp_path):
+    """parallel.step on 64 synthetic amplicons at L = 3072 with the whole
+    panel: only mask_kernel, sw_kernel, tb_kernel and walk_kernel launch,
+    the outputs equal the plain versions' on the card (a junk flag may
+    differ only where a mask decision does), and the mesh (card, card)
+    equals one device."""
+    from fslr_tpu_torch.io.fastq import read_fastx
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.parallel.step import (make_device_step,
+                                              make_sharded_step)
+    from fslr_tpu_torch.tools.synth import step_inputs
+    ref, fq = make_dataset(str(tmp_path), 64, 4)
+    seqs = [r.sequence for r in read_fastx(os.path.join(fq, 'b0.fastq'))]
+    seqs[3] = seqs[3][:150]                       # a short read
+    seqs[5] = seqs[5][:300] + 'AT' * 200 + seqs[5][300:]   # a junk read
+    L = chip_smoke.STEP_L
+    args = step_inputs(ref, seqs, L, card)
+    config = PipelineConfig()
+    n_seed = (L - config.align.seed_k) // config.align.seed_stride + 1
+    step = make_device_step(config, args[2].shape[0], L, n_seed)
+    kernels.reset_launches()
+    got = step(*args)
+    launches = kernels.launch_counts()
+    assert {k for k, v in launches.items() if v} == set(chip_smoke.STEP_PATH)
+    assert got['short'][3] and got['junk'][5]
+    want = chip_smoke._plain(lambda: step(*args))
+    post_k = tantan._posterior_cuda(args[0], config.junk)
+    post_p = tantan._posterior_torch(args[0], config.junk)
+    thr = config.junk.mask_posterior_threshold
+    differ = (post_k >= thr) != (post_p >= thr)
+    chip_smoke._same_step(got, want, 'card against plain',
+                          torch.nonzero(differ.any(1)).flatten().tolist())
+    mesh = Mesh((card, card))
+    chip_smoke._same_step(make_sharded_step(mesh, config, args[2].shape[0],
+                                            L, n_seed)(*args), got,
+                          'mesh against one device')
