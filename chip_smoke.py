@@ -81,9 +81,15 @@ Phases (each raises on failure; the exit code is then not 0):
    edges of 5 groups spread over the pair keys must equal, in order, the
    host path's on each group alone.  It prints a JSON line with the wall
    time, reads/s, each part's seconds, the encounter, pair, entry and
-   edge counts and the peak device memory.  Then 99,400 reads clustered
-   in-HBM and spilled to the host must agree, and 19,600 reads on the
-   card and on the CPU (both above device_enum_min_encounters).
+   edge counts and the peak device memory.  Then (a) the sharded path
+   (pk-range and query-range buckets on the card) on the same data, with
+   more than one query bucket, must give the in-HBM graph (match rows,
+   edges in order, node order), with the same JSON line; (b) 99,400
+   reads through the in-HBM, sharded and spill paths must agree; (c)
+   19,600 reads on the card and on the CPU, in-HBM and sharded (above
+   device_enum_min_encounters); (d) get_subgraphs on (b)'s graph under
+   the mesh (cuda, cuda) must equal it without a mesh; (e) 100 frames of
+   tools/cap_sweep on the card and on the CPU must give equal records.
 
 10. parallel (run before human-3g): (a) slice-10k's data through
     run_pipeline on a mesh of two entries on the card (``dp_call`` cuts
@@ -127,11 +133,12 @@ and tb kernels on every launch of the slice and consensus runs,
     python3 -c "import torch, chip_smoke; chip_smoke.build_kernels();
     chip_smoke.sweep_layouts(torch.device('cuda'))"
 
-``cluster_peak`` gives the in-HBM clustering path's peak device memory
-at another read count:
+``cluster_paths`` times query_graph through the in-HBM, sharded and
+spill paths (or those named) at another read count, with each one's peak
+device memory, and checks that their edges agree:
 
     python3 -c "import torch, chip_smoke as c;
-    c.cluster_peak(torch.device('cuda'), 2_000_000)"
+    c.cluster_paths(torch.device('cuda'), 2_000_000)"
 
 ``own_launches`` times every kernel on those runs' own launches and saves
 the inputs of the SW, tb and prof launches, on which ``time_launches``
@@ -145,6 +152,7 @@ inside the checkout:
     chip_smoke.time_launches('_proof/own.pt', torch.device('cuda'))"
 """
 
+import contextlib
 import csv
 import dataclasses
 import gzip
@@ -177,6 +185,7 @@ CROSS_GROUPS = 10
 # reads in 1,428 groups), then the spill and card-vs-CPU checks
 CLUSTER_READS, CLUSTER_GROUP, VERIFY_GROUPS = 1_000_000, 700, 5
 SPILL_READS, CROSS_CLUSTER_READS = 100_000, 20_000
+SWEEP_CASES = 100       # tools/cap_sweep frames, on the card and the CPU
 AS_SAMPLE = 1_000
 CLIPS_ONLY_MAX = 0.02   # share of records with no M/I/D (500 of 44,500 in phase 4)
 INDEX_SPLIT_BASES = 60_000_000      # slice-10k's reference in 2 shards
@@ -1707,6 +1716,66 @@ def _graph_rows(graph) -> tuple:
     return sorted(match), edges, list(node_pos.items())
 
 
+def _measured_graph(data, dev, cfg):
+    """query_graph on ``dev``: (graph, stats with the wall time, the peak
+    device bytes above what was held before and the bytes a read pair
+    added)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    stats: dict = {}
+    t0 = time.perf_counter()
+    graph = _query_graph(data, dev, cfg, stats)
+    stats['wall_s'] = time.perf_counter() - t0
+    stats['peak_device_bytes'] = torch.cuda.max_memory_allocated() - base
+    stats['peak_bytes_per_pair'] = (stats['peak_device_bytes']
+                                    / max(stats['pairs'], 1))
+    return graph, stats
+
+
+def _same_graph(a, b, what):
+    """Match rows, edges in order and node order of two query_graph
+    results must be equal."""
+    for i, part in ((1, 'edges'), (0, 'match rows')):
+        if a[i] != b[i]:
+            raise AssertionError(f'{what}: the {part} differ')
+    if list(a[2].items()) != list(b[2].items()):
+        raise AssertionError(f'{what}: the node order differs')
+
+
+@contextlib.contextmanager
+def _spill_direct_min(n: int):
+    """Streams above ``n`` encounters go to the spill
+    (ops/encounters.SPILL_DIRECT_MIN) while the block runs."""
+    from fslr_tpu_torch.ops import encounters
+    prev = encounters.SPILL_DIRECT_MIN
+    encounters.SPILL_DIRECT_MIN = n
+    try:
+        yield
+    finally:
+        encounters.SPILL_DIRECT_MIN = prev
+
+
+def _path_cfg(cfg, path: str):
+    """(cfg, SPILL_DIRECT_MIN) that send a stream to ``path``."""
+    from fslr_tpu_torch.ops import encounters
+    spill_min = 1 << 62 if path == 'in-HBM' else 1
+    return (dataclasses.replace(cfg, enum_spill_min_encounters=spill_min),
+            0 if path == 'spill' else encounters.SPILL_DIRECT_MIN)
+
+
+def _path_graph(data, dev, cfg, path: str):
+    """_measured_graph through ``path``, which must be the path taken."""
+    c, direct = _path_cfg(cfg, path)
+    with _spill_direct_min(direct):
+        graph, st = _measured_graph(data, dev, c)
+    if st['path'] != path or 'fallback' in st:
+        raise AssertionError(f'{path} asked, {st["path"]} taken '
+                             f'({st.get("fallback")})')
+    return graph, st
+
+
 def run_cluster_scale(dev, smi: str) -> dict:
     """cluster-1m: the scale path of breakpoint clustering
     (ops/encounters.py, capwalk.resolve_device) through query_graph and
@@ -1715,30 +1784,31 @@ def run_cluster_scale(dev, smi: str) -> dict:
     exact_cap_replay off).  It must take the in-HBM path and give one
     cluster a group, and the edges of VERIFY_GROUPS groups spread over the
     pair keys must equal, in order, the host path's on each group alone.
-    Then SPILL_READS reads clustered in-HBM and spilled to the host must
-    agree, and CROSS_CLUSTER_READS reads on the card and on the CPU (both
-    above device_enum_min_encounters).  Prints the wall time, reads/s,
-    each part's seconds, the sizes and the peak device memory; returns
-    them."""
+    Then (a) the sharded path on the same data (more than one query
+    bucket) must give the in-HBM graph; (b) SPILL_READS reads through the
+    in-HBM, sharded and spill paths must agree; (c) CROSS_CLUSTER_READS
+    reads on the card and on the CPU, in-HBM and sharded (both above
+    device_enum_min_encounters); (d) get_subgraphs on (b)'s graph under
+    the mesh (dev, dev) must equal it without a mesh; (e) SWEEP_CASES
+    frames of tools/cap_sweep on the card and on the CPU must give the
+    same records.  Prints the wall time, reads/s, each part's seconds,
+    the sizes and the peak device memory of both cluster-1m runs; returns
+    the in-HBM run's."""
     from fslr_tpu_torch.config import ClusterConfig
+    from fslr_tpu_torch.parallel import dispatch
+    from fslr_tpu_torch.parallel.mesh import Mesh
     from fslr_tpu_torch.stages.cluster import get_subgraphs
+    from fslr_tpu_torch.tools import cap_sweep
     from fslr_tpu_torch.tools.synth import make_cluster_scale_data
     cfg = ClusterConfig(exact_cap_replay=False)
     t0 = time.perf_counter()
     data = make_cluster_scale_data(CLUSTER_READS, CLUSTER_GROUP, seed=7)
     data_s = time.perf_counter() - t0
     n_groups = CLUSTER_READS // CLUSTER_GROUP
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    stats: dict = {}
-    t0 = time.perf_counter()
-    graph = _query_graph(data, dev, cfg, stats)
+    graph, stats = _measured_graph(data, dev, cfg)
     t1 = time.perf_counter()
     subgraphs = get_subgraphs(graph[1], graph[2], dev)
-    t2 = time.perf_counter()
-    peak = torch.cuda.max_memory_allocated() - base
+    components_s = time.perf_counter() - t1
     if stats['path'] != 'in-HBM':
         raise AssertionError(f'cluster-1m took the {stats["path"]} path')
     if len(subgraphs) != n_groups or \
@@ -1759,83 +1829,137 @@ def run_cluster_scale(dev, smi: str) -> dict:
         if not want or want != by_group[g]:
             raise AssertionError(f'cluster-1m group {g}: {len(want)} edges '
                                  f'on its own, {len(by_group[g])} at scale')
-    wall = t2 - t0
+    del subgraphs, by_group
     phases = ('enum_merge_s', 'gate_order_s', 'value_replay_s', 'emit_s')
-    out = dict(
-        phase='cluster-1m', reads=len(data), groups=n_groups,
-        device=smi.splitlines()[0], wall_s=wall, reads_per_s=len(data) / wall,
-        data_build_s=data_s,
-        prepare_s=(t1 - t0) - sum(stats[k] for k in phases),
-        **{k: stats[k] for k in phases}, components_s=t2 - t1,
-        encounters=stats['encounters'], pairs=stats['pairs'],
-        entries=stats['entries'], edges=stats['edges'],
-        clusters=len(subgraphs), verified_groups=len(vg),
-        peak_device_bytes=peak, peak_bytes_per_pair=peak / stats['pairs'],
-        path=stats['path'])
-    print(json.dumps(out))
-    del graph, subgraphs, data, by_group
 
-    # in-HBM == spill
+    def line(st, **extra):
+        return dict(
+            phase='cluster-1m', path=st['path'], reads=len(data),
+            groups=n_groups, device=smi.splitlines()[0],
+            query_graph_s=st['wall_s'],
+            prepare_s=st['wall_s'] - sum(st[k] for k in phases),
+            **{k: st[k] for k in phases}, encounters=st['encounters'],
+            pairs=st['pairs'], entries=st['entries'], edges=st['edges'],
+            peak_device_bytes=st['peak_device_bytes'],
+            peak_bytes_per_pair=st['peak_bytes_per_pair'],
+            **{k: st[k] for k in ('pk_buckets', 'query_buckets')
+               if k in st}, **extra)
+
+    wall = stats['wall_s'] + components_s
+    out = line(stats, wall_s=wall, reads_per_s=len(data) / wall,
+               data_build_s=data_s, components_s=components_s,
+               clusters=n_groups, verified_groups=len(vg))
+    print(json.dumps(out))
+
+    # (a) the sharded path on the same data gives the in-HBM graph
+    sharded, st = _path_graph(data, dev, cfg, 'sharded')
+    if st['query_buckets'] < 2:
+        raise AssertionError(f'cluster-1m sharded: {st["query_buckets"]} '
+                             'query bucket')
+    _same_graph(graph, sharded, 'cluster-1m sharded vs in-HBM')
+    print(json.dumps(line(st)))
+    del graph, sharded, data
+
+    # (b) in-HBM == sharded == spill
     data = make_cluster_scale_data(SPILL_READS, CLUSTER_GROUP, seed=7)
     got = {}
-    for tag, c in (('in-HBM', cfg), ('spill', dataclasses.replace(
-            cfg, enum_spill_min_encounters=1))):
-        st: dict = {}
-        t0 = time.perf_counter()
-        got[tag] = _graph_rows(_query_graph(data, dev, c, st))
-        if st['path'] != tag:
-            raise AssertionError(f'spill check: {st["path"]} for {tag}')
-        print(f'cluster {len(data)} reads {tag}: '
-              f'{time.perf_counter() - t0:.3f} s, {st["entries"]} entries, '
-              f'{st["edges"]} edges')
-    if got['in-HBM'] != got['spill']:
-        raise AssertionError('cluster: in-HBM and spill differ')
+    for path in ('in-HBM', 'sharded', 'spill'):
+        got[path], st = _path_graph(data, dev, cfg, path)
+        print(f'cluster {len(data)} reads {path}: {st["wall_s"]:.3f} s, '
+              f'{st["entries"]} entries, {st["edges"]} edges, peak '
+              f'{st["peak_device_bytes"]} B')
+    for path in ('sharded', 'spill'):
+        _same_graph(got['in-HBM'], got[path], f'cluster: {path} vs in-HBM')
 
-    # card == CPU, both above device_enum_min_encounters
+    # (d) the mesh merge of the components, timed in turns against the
+    # call without a mesh
+    _, edges, node_pos = got['in-HBM']
+    res, secs = {}, {'plain': [], 'mesh': []}
+    for kind in ('plain', 'mesh', 'mesh', 'plain'):
+        t0 = time.perf_counter()
+        with (dispatch.use_mesh(Mesh((dev, dev))) if kind == 'mesh'
+              else contextlib.nullcontext()):
+            res[kind] = get_subgraphs(edges, node_pos, dev)
+        secs[kind].append(time.perf_counter() - t0)
+    plain = res['plain']
+    if res['mesh'] != plain or len(plain) != len(data) // CLUSTER_GROUP:
+        raise AssertionError('cluster: get_subgraphs on the mesh differs')
+    print(json.dumps(dict(phase='cluster-mesh-merge', reads=len(data),
+                          edges=len(edges), components=len(plain),
+                          mesh=f'({dev}, {dev})', plain_s=secs['plain'],
+                          mesh_s=secs['mesh'])))
+    del got, res, plain, edges, node_pos
+
+    # (c) card == CPU, in-HBM and sharded, above device_enum_min_encounters
     data = make_cluster_scale_data(CROSS_CLUSTER_READS, CLUSTER_GROUP,
                                    seed=7)
-    got = []
+    for path in ('in-HBM', 'sharded'):
+        c, _ = _path_cfg(cfg, path)
+        got = []
+        for d in (dev, torch.device('cpu')):
+            st = {}
+            t0 = time.perf_counter()
+            got.append(_query_graph(data, d, c, st))
+            if st['path'] != path or \
+                    st['encounters'] < cfg.device_enum_min_encounters:
+                raise AssertionError(f'card vs CPU: {st}')
+            print(f'cluster {len(data)} reads {path} on {d.type}: '
+                  f'{time.perf_counter() - t0:.3f} s, {st["encounters"]} '
+                  f'encounters, {st["edges"]} edges')
+        _same_graph(got[0], got[1], f'cluster {path}: card vs CPU')
+
+    # (e) a short cap sweep, card == CPU
+    recs = []
     for d in (dev, torch.device('cpu')):
-        st = {}
         t0 = time.perf_counter()
-        got.append(_graph_rows(_query_graph(data, d, cfg, st)))
-        if st['path'] != 'in-HBM' or \
-                st['encounters'] < cfg.device_enum_min_encounters:
-            raise AssertionError(f'card vs CPU: {st}')
-        print(f'cluster {len(data)} reads on {d.type}: '
-              f'{time.perf_counter() - t0:.3f} s, {st["encounters"]} '
-              f'encounters, {st["edges"]} edges')
-    if got[0] != got[1]:
-        raise AssertionError('cluster: the card and the CPU differ')
+        recs.append(cap_sweep.sweep(SWEEP_CASES, 1, d))
+        print(f'cap sweep on {d.type}: {time.perf_counter() - t0:.3f} s, '
+              + json.dumps(cap_sweep.totals(recs[-1])))
+    if recs[0] != recs[1]:
+        raise AssertionError('cap sweep: the card and the CPU differ')
     torch.cuda.empty_cache()
     return out
 
 
-def cluster_peak(dev, n_reads: int) -> dict:
-    """Peak device memory of the in-HBM scale path of clustering on
-    ``n_reads`` reads of tools/synth's cluster-scale data (groups of
-    CLUSTER_GROUP), through query_graph; not run by default:
+def cluster_paths(dev, n_reads: int, paths=('in-HBM', 'sharded', 'spill')):
+    """One-off measurement, not run by default: query_graph on ``n_reads``
+    reads of tools/synth's cluster-scale data (groups of CLUSTER_GROUP)
+    through each of ``paths``; a JSON line a path with its wall time,
+    each part's seconds, the sizes, the peak device bytes (and a read
+    pair's share), the process's peak host memory so far and a digest of
+    its edges and node order, which must agree between the paths.
 
         python3 -c "import torch, chip_smoke as c;
-        c.cluster_peak(torch.device('cuda'), 2_000_000)"
+        c.cluster_paths(torch.device('cuda'), 2_000_000)"
     """
+    import hashlib
+    import itertools
+    import resource
     from fslr_tpu_torch.config import ClusterConfig
     from fslr_tpu_torch.tools.synth import make_cluster_scale_data
-    cfg = ClusterConfig(exact_cap_replay=False,
-                        enum_spill_min_encounters=1 << 62)
-    data = make_cluster_scale_data(n_reads, CLUSTER_GROUP, seed=7)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base = torch.cuda.memory_allocated()
-    stats: dict = {}
+    cfg = ClusterConfig(exact_cap_replay=False)
     t0 = time.perf_counter()
-    _query_graph(data, dev, cfg, stats)
-    peak = torch.cuda.max_memory_allocated() - base
-    out = dict(reads=len(data), wall_s=time.perf_counter() - t0,
-               peak_device_bytes=peak,
-               peak_bytes_per_pair=peak / max(stats['pairs'], 1), **stats)
-    print(json.dumps(out))
+    data = make_cluster_scale_data(n_reads, CLUSTER_GROUP, seed=7)
+    print(json.dumps(dict(reads=len(data),
+                          data_build_s=time.perf_counter() - t0)),
+          flush=True)
+    out = {}
+    for path in paths:
+        graph, st = _path_graph(data, dev, cfg, path)
+        _, edges, node_pos = graph
+        del graph
+        h = hashlib.sha256()
+        h.update(np.fromiter(itertools.chain.from_iterable(edges),
+                             np.int64, 2 * len(edges)).tobytes())
+        h.update(np.fromiter(node_pos, np.int64, len(node_pos)).tobytes())
+        del edges, node_pos
+        st['digest'] = h.hexdigest()[:16]
+        st['host_peak_rss_bytes'] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss * 1024
+        out[path] = st
+        print(json.dumps(dict(reads=len(data), **st)), flush=True)
+    if len({st['digest'] for st in out.values()}) > 1:
+        raise AssertionError('cluster_paths: the paths differ')
     torch.cuda.empty_cache()
     return out
 

@@ -155,13 +155,15 @@ class ClusterConfig:
     # slice results merge into the accumulator once this many encounters
     # are held (or three slices)
     enum_merge_cap: int = 96 * 1024 * 1024
-    # encounter streams above this size keep their pairs in host memory
-    # (the spill path of ops/encounters.py), the others on the device.
-    # Set for an 80 GB card: the in-HBM path's peak is 52.4 B a read pair
-    # (chip_smoke.run_cluster_scale and cluster_peak on an H100 80GB at
-    # 1.0M and 2.0M reads; PERF.md section 6), and a pair is met at least
-    # twice (once from each read), so 2^31 encounters stay under ~56 GB.
-    # No artifact depends on it.
+    # encounter streams up to this size keep their pairs in one set on
+    # the device (the in-HBM path of ops/encounters.py); larger ones up to
+    # encounters.SPILL_DIRECT_MIN in pk-range and query-range buckets on
+    # the device (the sharded path, 12 B a pair resident), and larger ones
+    # still in host memory (the spill).  Set for an 80 GB card: the
+    # in-HBM path's peak is 52.4 B a read pair (chip_smoke.py phase 9 and
+    # cluster_paths on an H100 80GB at 1.0M and 2.0M reads; PERF.md
+    # section 6), and a pair is met at least twice (once from each read),
+    # so 2^31 encounters stay under ~56 GB.  No artifact depends on it.
     enum_spill_min_encounters: int = 1 << 31
 
 

@@ -31,7 +31,9 @@ cap skipped stays unseen).  fslr_tpu's adversarial sweep
 device path) found the partition changed on 4 frames (0.44%), each time
 by splitting one cluster bridged only by such re-tests;
 tests/test_torch_capwalk.py holds the port to fslr_tpu's device path on
-those four frames.
+those four frames.  The port's own sweep (tools/cap_sweep.py, the scale
+path against the exact host walk; PERF.md section 6) found 8 of 2,000
+frames (0.40%) on an H100: on seeds 1-900 the same four as fslr_tpu's.
 """
 
 from __future__ import annotations

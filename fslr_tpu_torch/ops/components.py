@@ -16,11 +16,15 @@ import torch
 
 def connected_components(edges, n_nodes: int,
                          device: torch.device) -> np.ndarray:
-    """edges: (E, 2) node ids (may be empty), moved to ``device`` (the
-    caller names it: a CUDA card, or the CPU).  Returns (n_nodes,) int64
-    labels on the host, label = smallest node id of the component."""
-    e = torch.as_tensor(np.asarray(edges, np.int64).reshape(-1, 2),
-                        device=device)
+    """edges: (E, 2) node ids (may be empty; an array or a tensor),
+    moved to ``device`` (the caller names it: a CUDA card, or the CPU).
+    Returns (n_nodes,) int64 labels on the host, label = smallest node id
+    of the component."""
+    if isinstance(edges, torch.Tensor):
+        e = edges.to(device=device, dtype=torch.int64).reshape(-1, 2)
+    else:
+        e = torch.as_tensor(np.asarray(edges, np.int64).reshape(-1, 2),
+                            device=device)
     labels = torch.arange(n_nodes, dtype=torch.long, device=e.device)
     if e.shape[0] == 0:
         return labels.cpu().numpy()

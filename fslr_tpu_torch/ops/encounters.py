@@ -21,13 +21,21 @@ reads in groups of 700), so here it is never built on the host:
      and the gated entries are sorted into traversal order and stay on
      the device for ops/capwalk.resolve_device.
 
-Above ``spill_min_encounters`` the spill path keeps the slices'
-reductions in host memory in pk-range buckets, deduplicates and gates them
-with the same functions on CPU tensors and orders them with numpy
-(``_build_entries_spill``); it still enumerates on the device.  The path is chosen by size before the build.  fslr_tpu also
-has a sharded device path between the two (pk-range buckets on the device,
-for the TPU's 2 GiB limit on one buffer); the card has no such limit and
-the port goes straight from the one to the other (ROADMAP.md).
+Three paths hold the entries, chosen by the stream's size before the build
+(``build_entries``, as fslr_tpu's):
+
+  * up to ``spill_min_encounters``: **in-HBM**, one accumulator and one
+    traversal-ordered entry set on the device (:class:`EntrySet`);
+  * above that, up to ``SPILL_DIRECT_MIN``: **sharded**, the pairs in
+    pk-range buckets on the device, gated bucket by bucket and exchanged
+    into query-range buckets (:class:`ShardedEntrySet`); only 12 bytes a
+    pair stay resident, the transients are one bucket's;
+  * above ``SPILL_DIRECT_MIN``, or where the sharded build overflows a
+    bucket or runs out of device memory: the **spill**, which keeps the
+    slices' reductions in host memory in pk-range buckets, deduplicates
+    and gates them with the same functions on CPU tensors and orders them
+    with numpy (``_build_entries_spill``); it still enumerates on the
+    device.
 
 Pair state (12 bytes): pk, and sk = side_flag * 2^30 + interval_rank *
 max_nc + neighbour position, side_flag = 1 when the query read is the
@@ -42,6 +50,7 @@ datasets on its host path).
 from __future__ import annotations
 
 import dataclasses
+import gc
 import sys
 import time
 
@@ -56,6 +65,25 @@ _GATE_CHUNK = 1 << 26
 # the spill path's pk-range buckets hold the reductions of at most this
 # many encounters each (bounds phase 2's host temporaries)
 _PHASE2_CAP = 1 << 26
+# the sharded path's buckets: as many pk-range buckets (a power of two, at
+# most 4096) as keep the encounters a bucket at or below _BUCKET_TARGET,
+# and as many query-range buckets as keep the entries a bucket there; a
+# bucket past _BUCKET_CAP pairs (key skew) raises _ShardOverflow
+_BUCKET_TARGET = 1 << 25
+_BUCKET_CAP = 1 << 26
+# Streams above this many encounters go to the spill without a sharded
+# attempt.  The sharded path keeps 12 bytes a pair resident (pk int64 +
+# sk int32, then key int64 + other read int32), plus one slice's and one
+# bucket's transients: its peak was 10.71 GB at 6.99e8 pairs, 17.30 GB at
+# 1.22e9 and 45.93 GB at 3.49e9 (15.3, 14.1 and 13.1 B a pair; 12 B a
+# pair + 2-4 GB), through query_graph on tools/synth's cluster-scale
+# data (chip_smoke.cluster_paths on an NVIDIA H100 80GB HBM3 at a
+# 700.00 W power limit).  A pair is met at least twice (once from each
+# read), so 2^33 encounters are at most 2^32 pairs: 51.5 GB + ~4 GB,
+# which leaves ~24 GB of an 80 GB card to the stages' other tensors.
+SPILL_DIRECT_MIN = 1 << 33
+# slice results merged into an accumulator at a time
+_KMAX = 3
 
 
 @dataclasses.dataclass
@@ -135,6 +163,51 @@ def _enum_job_slices(job: ChromJob, slice_cap: int, R: int, max_nc: int,
         g0 += n
 
 
+class _Acc:
+    """Slice results merged into one deduplicated accumulator, at most
+    _KMAX at a time (or once ``merge_cap`` encounters are held), so the
+    device holds the accumulator and one merge's inputs and outputs."""
+
+    def __init__(self, merge_cap: int):
+        self.merge_cap = merge_cap
+        self.parts: list = []
+        self.held = 0
+        self.acc = None
+
+    def add(self, pk, sk, n: int):
+        self.parts.append((pk, sk))
+        self.held += n
+        if self.held >= self.merge_cap or len(self.parts) >= _KMAX:
+            self.merge()
+
+    def merge(self):
+        while self.parts:
+            group = [self.parts.pop(0)
+                     for _ in range(min(_KMAX, len(self.parts)))]
+            if self.acc is not None:
+                group.insert(0, self.acc)
+            self.acc = None
+            if len(group) == 1:
+                self.acc = group[0]     # one slice result is reduced
+            else:
+                state = [torch.cat([p for p, _ in group]),
+                         torch.cat([s for _, s in group])]
+                group.clear()
+                self.acc = _min_by_key(state)
+        self.held = 0
+
+    def size(self) -> int:
+        return 0 if self.acc is None else int(self.acc[0].numel())
+
+    def take(self) -> list:
+        """The merged [pk, sk] (empty when nothing was added); the
+        accumulator lets go of it."""
+        self.merge()
+        state = [] if self.acc is None else list(self.acc)
+        self.acc = None
+        return state
+
+
 def _split_pair(pk, sk, R: int):
     """(a = query read, b = other read, rest) from the pair state; pk and
     sk are non-negative here (no sentinel), so // and % are exact."""
@@ -160,14 +233,12 @@ def _gate(a, b, qlen2_d, naln_d, qlen_thresh: float, naln_thresh: float):
     return (r_q >= qlen_thresh) | (r_n >= naln_thresh)
 
 
-def _order(acc: list, R: int, trav_scale: int, gate_args):
-    """acc = [pk, sk] (emptied) -> the gated entries in traversal order:
-    (key = traversal key int64, other read int32, bounds (R + 1,) numpy).
-    fslr_tpu's ``_gate_fn`` and ``_order_fn`` in one pass of chunks; the
-    run-jump array ``_order_fn`` also builds is not kept (resolve_device
-    finds the run starts from the keys)."""
-    pk, sk = acc
-    acc.clear()
+def _gate_compact(state: list, R: int, trav_scale: int, gate_args):
+    """state = [pk, sk] (emptied) -> the gated pairs as [traversal key
+    int64, other read int32], in pk order: fslr_tpu's ``_gate_fn`` and
+    ``_gate_compact_fn``, in chunks of _GATE_CHUNK pairs."""
+    pk, sk = state
+    state.clear()
     tv_parts, eo_parts = [], []
     for c0 in range(0, pk.numel(), _GATE_CHUNK):
         a, b, rest = _split_pair(pk[c0:c0 + _GATE_CHUNK],
@@ -177,17 +248,25 @@ def _order(acc: list, R: int, trav_scale: int, gate_args):
         eo_parts.append(b[g].to(torch.int32))
         del a, b, rest, g
     del pk, sk
-    tv = torch.cat(tv_parts)
-    eo = torch.cat(eo_parts)
-    del tv_parts, eo_parts
-    key, order = torch.sort(tv)           # traversal keys are unique
+    return [torch.cat(tv_parts), torch.cat(eo_parts)]
+
+
+def _traversal_order(state: list):
+    """state = [tv, eo] (emptied) -> (key, other read) sorted by the
+    traversal key (keys are unique); tv frees before eo is gathered."""
+    tv, eo = state
+    state.clear()
+    key, order = torch.sort(tv)
     del tv
-    eo = eo[order]
-    del order
-    q0 = torch.arange(R + 1, dtype=torch.int64, device=key.device) \
+    return key, eo[order]
+
+
+def _query_bounds(key, q_lo: int, q_hi: int, trav_scale: int) -> np.ndarray:
+    """For each query q in [q_lo, q_hi): the number of the sorted keys
+    that belong to queries below q."""
+    q0 = torch.arange(q_lo, q_hi, dtype=torch.int64, device=key.device) \
         * trav_scale
-    bounds = torch.searchsorted(key, q0).cpu().numpy().astype(np.int64)
-    return key, eo, bounds
+    return torch.searchsorted(key, q0).cpu().numpy().astype(np.int64)
 
 
 class EntrySet:
@@ -207,6 +286,28 @@ class EntrySet:
         return [(self._key, self._eo, 0, self.E)]
 
 
+class ShardedEntrySet:
+    """The sharded path's entries: per query-range bucket, the traversal
+    keys (int64) and other reads (int32) on the device, sorted.  The
+    global entry order is the buckets' concatenation (``offsets[i]`` is
+    bucket i's first global index) and a query never spans two buckets;
+    ``bounds`` (R + 1,) are the global per-query ranges."""
+
+    def __init__(self, buckets: list, offsets: np.ndarray,
+                 bounds: np.ndarray, E: int):
+        self._buckets = buckets
+        self._offsets = offsets
+        self.bounds = bounds
+        self.E = E
+
+    def device_buckets(self):
+        """[(key, eo, global base, n entries)] of the non-empty buckets,
+        in global traversal order (ops/capwalk.resolve_device)."""
+        return [(key, eo, int(self._offsets[i]), int(key.numel()))
+                for i, (key, eo) in enumerate(self._buckets)
+                if key.numel()]
+
+
 @dataclasses.dataclass
 class HostEntrySet:
     """The spill path's entries, in host memory: the interval rank ``ei``
@@ -219,6 +320,20 @@ class HostEntrySet:
     E: int
 
 
+class _ShardOverflow(Exception):
+    """A bucket of the sharded build passed _BUCKET_CAP pairs (key skew);
+    build_entries falls back to the spill."""
+
+
+def _n_buckets(n: int) -> int:
+    """The buckets (a power of two up to 4096) that keep n / B at or
+    below _BUCKET_TARGET."""
+    B = 1
+    while B < 4096 and n // B > _BUCKET_TARGET:
+        B *= 2
+    return B
+
+
 def build_entries(jobs: list[ChromJob], R: int, max_itv: int, max_nc: int,
                   qlen2: np.ndarray, naln: np.ndarray, qlen_thresh: float,
                   naln_thresh: float, slice_cap: int, merge_cap: int,
@@ -227,13 +342,17 @@ def build_entries(jobs: list[ChromJob], R: int, max_itv: int, max_nc: int,
     """Enumerate -> per-pair first encounter -> gate -> traversal order.
 
     qlen_thresh / naln_thresh are ``1 - qlen_diff`` and ``1 -
-    n_alignment_diff`` (Python floats).  Streams of more than
-    ``spill_min_encounters`` encounters take the spill path (a
-    :class:`HostEntrySet`), the others stay on ``device`` (an
-    :class:`EntrySet`); both hold the same entries.  ``stats`` receives
-    the path, the encounter count, the entry count and each phase's
-    seconds (each phase ends in a copy to the host, so its wall time
-    holds its device work).
+    n_alignment_diff`` (Python floats).  The path follows fslr_tpu's
+    dispatch: streams of at most ``spill_min_encounters`` encounters stay
+    in-HBM (an :class:`EntrySet`), streams above ``SPILL_DIRECT_MIN``
+    (read at call time) go to the spill (a
+    :class:`HostEntrySet`), and those between take the sharded path (a
+    :class:`ShardedEntrySet`), which falls back to the spill when a bucket
+    overflows or the card runs out of memory; all hold the same entries.
+    ``stats`` receives the path (``'in-HBM'``, ``'sharded'`` or
+    ``'spill'``), the reason of a fallback (``'fallback'``), the
+    encounter, pair and entry counts and each phase's seconds (each phase
+    ends in a copy to the host, so its wall time holds its device work).
     """
     stats = {} if stats is None else stats
     trav_scale = max_itv * max_nc
@@ -244,57 +363,76 @@ def build_entries(jobs: list[ChromJob], R: int, max_itv: int, max_nc: int,
                          'keeps such datasets on its host path)')
     total_enc = sum(int(j.ccum[-1]) for j in jobs)
     stats['encounters'] = total_enc
-    if total_enc > spill_min_encounters:
+    args = (jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh, naln_thresh,
+            slice_cap)
+    if total_enc > SPILL_DIRECT_MIN:
         print(f'encounter build: {total_enc} encounters, host-spill path',
               file=sys.stderr)
         stats['path'] = 'spill'
-        return _build_entries_spill(jobs, R, max_itv, max_nc, qlen2, naln,
-                                    qlen_thresh, naln_thresh, slice_cap,
-                                    device, stats)
-    stats['path'] = 'in-HBM'
-    return _build_entries_dev(jobs, R, max_itv, max_nc, qlen2, naln,
-                              qlen_thresh, naln_thresh, slice_cap,
-                              merge_cap, device, stats)
+        return _spill_with_retry(*args, device, stats)
+    if total_enc <= spill_min_encounters:
+        stats['path'] = 'in-HBM'
+        return _build_entries_dev(*args, merge_cap, device, stats)
+    # the fallback runs outside the except blocks: a live exception pins
+    # its traceback's frames, and with them the failed build's tensors
+    stats['path'] = 'sharded'
+    try:
+        return _build_entries_sharded(*args, merge_cap, device, stats)
+    except _ShardOverflow as e:
+        why = f'overflow ({e})'
+    except torch.cuda.OutOfMemoryError:
+        why = 'exhausted device memory'
+    print(f'WARNING: sharded encounter build {why}; falling back to '
+          'host-spill path', file=sys.stderr)
+    stats['path'] = 'spill'
+    stats['fallback'] = why
+    _release(device)
+    return _spill_with_retry(*args, device, stats)
+
+
+def _release(device: torch.device):
+    """Free what a failed build left: its tensors, then the allocator's
+    cached blocks."""
+    gc.collect()
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+
+
+def _spill_with_retry(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
+                      naln_thresh, slice_cap, device, stats):
+    """The spill with fslr_tpu's degradation ladder: where the card runs
+    out of memory, retry with 4x and then 16x smaller enumeration slices
+    and pk buckets (smaller device transients, more round trips).  The
+    divisor that completed is ``stats['spill_div']``."""
+    for div in (1, 4, 16):
+        try:
+            stats['spill_div'] = div
+            return _build_entries_spill(
+                jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
+                naln_thresh, max(slice_cap // div, min(slice_cap, 1 << 20)),
+                device, stats, phase2_cap=max(_PHASE2_CAP // div, 1 << 20))
+        except torch.cuda.OutOfMemoryError:
+            if div == 16:
+                raise
+        print(f'WARNING: host-spill build exhausted device memory at '
+              f'slice_cap/{div}; retrying at slice_cap/{div * 4}',
+              file=sys.stderr)
+        _release(device)
 
 
 def _build_entries_dev(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
                        naln_thresh, slice_cap, merge_cap, device, stats):
     """The in-HBM path (fslr_tpu's ``_build_entries_x64``): slice results
-    merge into one deduplicated accumulator at most KMAX parts at a time,
-    so the device holds the accumulator and one merge's inputs and
-    outputs."""
+    merge into one deduplicated accumulator (:class:`_Acc`)."""
     t0 = time.perf_counter()
-    KMAX = 3
-    parts: list = []
-    held = 0
-    acc = None
-
-    def merge_parts():
-        nonlocal held, acc
-        while parts:
-            group = [parts.pop(0) for _ in range(min(KMAX, len(parts)))]
-            if acc is not None:
-                group.insert(0, acc)
-            acc = None
-            if len(group) == 1:
-                acc = group[0]      # one slice result is already reduced
-            else:
-                state = [torch.cat([p for p, _ in group]),
-                         torch.cat([s for _, s in group])]
-                group.clear()
-                acc = _min_by_key(state)
-        held = 0
-
+    acc = _Acc(merge_cap)
     for job in jobs:
         for pk_u, sk_u, n in _enum_job_slices(job, slice_cap, R, max_nc,
                                               device):
-            parts.append((pk_u, sk_u))
+            acc.add(pk_u, sk_u, n)
             del pk_u, sk_u
-            held += n
-            if held >= merge_cap or len(parts) >= KMAX:
-                merge_parts()
-    merge_parts()
-    U = 0 if acc is None else int(acc[0].numel())
+    state = acc.take()
+    U = int(state[0].numel()) if state else 0
     stats['pairs'] = U
     t1 = time.perf_counter()
     stats['enum_merge_s'] = t1 - t0
@@ -303,22 +441,137 @@ def _build_entries_dev(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
         stats['gate_order_s'] = 0.0
         z = torch.zeros(0, dtype=torch.int64, device=device)
         return EntrySet(z, z.to(torch.int32), np.zeros(R + 1, np.int64), 0)
-    state = list(acc)
-    acc = None
-    key, eo, bounds = _order(
-        state, R, max_itv * max_nc,
-        (torch.as_tensor(np.asarray(qlen2, np.float64), device=device),
-         torch.as_tensor(np.asarray(naln, np.float64), device=device),
-         qlen_thresh, naln_thresh))
+    trav_scale = max_itv * max_nc
+    key, eo = _traversal_order(_gate_compact(
+        state, R, trav_scale, _gate_args(qlen2, naln, qlen_thresh,
+                                         naln_thresh, device)))
+    bounds = _query_bounds(key, 0, R + 1, trav_scale)
     E = int(key.numel())
     stats['entries'] = E
     stats['gate_order_s'] = time.perf_counter() - t1
     return EntrySet(key, eo, bounds, E)
 
 
+def _gate_args(qlen2, naln, qlen_thresh, naln_thresh, device):
+    return (torch.as_tensor(np.asarray(qlen2, np.float64), device=device),
+            torch.as_tensor(np.asarray(naln, np.float64), device=device),
+            qlen_thresh, naln_thresh)
+
+
+def _share(a, b, lo: int, hi: int):
+    """(a[lo:hi], b[lo:hi]): the arrays themselves when the range is all
+    of them, else copies, so that the arrays free once they are cut (a
+    view would keep each one whole until its bucket merges)."""
+    if hi - lo == a.numel():
+        return a, b
+    return a[lo:hi].clone(), b[lo:hi].clone()
+
+
+def _build_entries_sharded(jobs, R, max_itv, max_nc, qlen2, naln,
+                           qlen_thresh, naln_thresh, slice_cap, merge_cap,
+                           device, stats) -> ShardedEntrySet:
+    """The sharded path (fslr_tpu's ``_build_entries_sharded``), in three
+    phases on the device:
+
+      1. each slice's pk-sorted reduction is cut at B pk-range bounds
+         (``torch.searchsorted``) and each share, copied out, merges
+         into its bucket's accumulator (:class:`_Acc`);
+      2. each pk bucket is gated and compacted to (traversal key, other
+         read), freeing its accumulator;
+      3. each gated bucket is sorted by key and cut into B2 query-range
+         buckets, then freed; each query bucket is sorted, and its
+         per-query bounds come from ``searchsorted`` on its keys.
+
+    Raises _ShardOverflow when a bucket passes _BUCKET_CAP pairs.
+    """
+    t0 = time.perf_counter()
+    trav_scale = max_itv * max_nc
+    B = _n_buckets(sum(int(j.ccum[-1]) for j in jobs))
+    W = (R * R) // B + 1
+    pk_bounds = torch.arange(1, B, dtype=torch.int64, device=device) * W
+    accs = [_Acc(merge_cap) for _ in range(B)]
+    stats['pk_buckets'] = B
+
+    # ---- phase 1: enumerate slices, merge each share into its bucket --
+    for job in jobs:
+        for pk_u, sk_u, _ in _enum_job_slices(job, slice_cap, R, max_nc,
+                                              device):
+            c = int(pk_u.numel())
+            cuts = [0, *torch.searchsorted(pk_u, pk_bounds).tolist(), c]
+            for acc, lo, hi in zip(accs, cuts[:-1], cuts[1:]):
+                if hi > lo:
+                    acc.add(*_share(pk_u, sk_u, lo, hi), hi - lo)
+                    if acc.size() > _BUCKET_CAP:
+                        raise _ShardOverflow(acc.size())
+            del pk_u, sk_u
+    for acc in accs:
+        acc.merge()
+        if acc.size() > _BUCKET_CAP:
+            raise _ShardOverflow(acc.size())
+    U = sum(acc.size() for acc in accs)
+    stats['pairs'] = U
+    t1 = time.perf_counter()
+    stats['enum_merge_s'] = t1 - t0
+
+    # ---- phase 2: gate and compact each pk bucket ---------------------
+    gate_args = _gate_args(qlen2, naln, qlen_thresh, naln_thresh, device)
+    gated: list = []
+    for b in range(B):
+        state = accs[b].take()
+        accs[b] = None
+        if not state:
+            continue
+        pair = _gate_compact(state, R, trav_scale, gate_args)
+        if pair[0].numel():
+            gated.append(pair)
+        del pair
+
+    # ---- phase 3: exchange into query-range buckets, order -------------
+    E = sum(int(tv.numel()) for tv, _ in gated)
+    B2 = _n_buckets(E)
+    qw = (R + B2) // B2             # query ids a bucket; B2 * qw > R
+    tv_bounds = torch.arange(1, B2, dtype=torch.int64, device=device) \
+        * (qw * trav_scale)
+    pieces: list = [[] for _ in range(B2)]
+    while gated:
+        key, eo = _traversal_order(gated.pop(0))
+        n = int(key.numel())
+        cuts = [0, *torch.searchsorted(key, tv_bounds).tolist(), n]
+        for j, lo, hi in zip(range(B2), cuts[:-1], cuts[1:]):
+            if hi > lo:
+                pieces[j].append(_share(key, eo, lo, hi))
+        del key, eo
+    buckets: list = []
+    offsets = np.zeros(B2 + 1, np.int64)
+    bounds = np.zeros(R + 1, np.int64)
+    empty = torch.zeros(0, dtype=torch.int64, device=device)
+    for j in range(B2):
+        parts, pieces[j] = pieces[j], None
+        if sum(int(k.numel()) for k, _ in parts) > _BUCKET_CAP:
+            raise _ShardOverflow(sum(int(k.numel()) for k, _ in parts))
+        if parts:
+            state = [torch.cat([k for k, _ in parts]),
+                     torch.cat([e for _, e in parts])]
+            parts.clear()
+            key, eo = _traversal_order(state)
+        else:
+            key, eo = empty, empty.to(torch.int32)
+        q_lo, q_hi = j * qw, min((j + 1) * qw, R + 1)
+        if q_lo < q_hi:
+            bounds[q_lo:q_hi] = offsets[j] + _query_bounds(key, q_lo, q_hi,
+                                                           trav_scale)
+        buckets.append((key, eo))
+        offsets[j + 1] = offsets[j] + key.numel()
+        del key, eo
+    stats['query_buckets'] = B2
+    stats['entries'] = E
+    stats['gate_order_s'] = time.perf_counter() - t1
+    return ShardedEntrySet(buckets, offsets, bounds, E)
+
+
 def _build_entries_spill(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
-                         naln_thresh, slice_cap, device,
-                         stats) -> HostEntrySet:
+                         naln_thresh, slice_cap, device, stats,
+                         phase2_cap: int = _PHASE2_CAP) -> HostEntrySet:
     """Enumerate on the device, keep the slices' reductions in host memory
     in pk-range buckets, then deduplicate and gate each bucket with the
     in-HBM path's own functions on CPU tensors, and order the gated
@@ -328,9 +581,9 @@ def _build_entries_spill(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
     t0 = time.perf_counter()
     trav_scale = max_itv * max_nc
     total_enc = sum(int(j.ccum[-1]) for j in jobs)
-    # pk-range buckets of at most _PHASE2_CAP encounters' reductions each
+    # pk-range buckets of at most phase2_cap encounters' reductions each
     B = 1
-    while B < 4096 and total_enc // B > _PHASE2_CAP:
+    while B < 4096 and total_enc // B > phase2_cap:
         B *= 2
     W = (R * R) // B + 1
     bucket_bounds = np.arange(1, B, dtype=np.int64) * W
@@ -359,9 +612,8 @@ def _build_entries_spill(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
     # ---- phase 2: per bucket, host dedup + float64 gate ---------------
     # gated entries land in query-range buckets, so the traversal sort of
     # phase 3 runs one bounded range at a time
-    gate_args = (torch.as_tensor(np.asarray(qlen2, np.float64)),
-                 torch.as_tensor(np.asarray(naln, np.float64)),
-                 qlen_thresh, naln_thresh)
+    gate_args = _gate_args(qlen2, naln, qlen_thresh, naln_thresh,
+                           torch.device('cpu'))
     NQR = 64
     q_span = max(1, -(-R // NQR))
     range_tv: list[list] = [[] for _ in range(NQR)]

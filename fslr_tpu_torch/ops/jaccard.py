@@ -80,6 +80,40 @@ def jaccard_pairs_indexed(pairs, chrom, start, end, size, lens,
     return js, ns
 
 
+def jaccard_pairs(lists1, lists2, percentage: float, M: int = 32, *,
+                  device: torch.device):
+    """fslr_tpu's list API: lists1 / lists2 are N per-read interval lists
+    of (chrom, start, end, aln_size) tuples, pair n is (lists1[n],
+    lists2[n]).  Both go into one table of 2N reads on ``device`` and
+    :func:`jaccard_pairs_indexed` values the pairs (n, N + n); pairs with
+    a list longer than M take :func:`jaccard_host`.  Returns (j float32,
+    n_i int32) numpy arrays."""
+    N = len(lists1)
+    if N == 0:
+        return np.zeros(0, np.float32), np.zeros(0, np.int32)
+    chrom = np.zeros((2 * N, M), np.int32)
+    start = np.zeros((2 * N, M), np.int32)
+    end = np.zeros((2 * N, M), np.int32)
+    size = np.zeros((2 * N, M), np.float32)
+    lens = np.zeros(2 * N, np.int32)
+    over = []
+    for n, pair in enumerate(zip(lists1, lists2)):
+        if max(len(lst) for lst in pair) > M:
+            over.append(n)
+            continue
+        for r, lst in ((n, pair[0]), (N + n, pair[1])):
+            lens[r] = len(lst)
+            for i, (c, s, e, z) in enumerate(lst):
+                chrom[r, i], start[r, i], end[r, i], size[r, i] = c, s, e, z
+    pairs = np.stack([np.arange(N), np.arange(N, 2 * N)], 1)
+    j, n_i = jaccard_pairs_indexed(
+        pairs, *upload_interval_arrays(chrom, start, end, size, lens,
+                                       device), percentage, M)
+    for n in over:
+        j[n], n_i[n] = jaccard_host(lists1[n], lists2[n], percentage)
+    return j, n_i
+
+
 def jaccard_host(l1, l2, percentage):
     """Exact host mirror (same greedy-first-match semantics)."""
     if not l1 or not l2:

@@ -43,6 +43,7 @@ import torch
 
 from fslr_tpu_torch.config import ClusterConfig
 from fslr_tpu_torch.ops import capwalk, components, encounters, jaccard
+from fslr_tpu_torch.parallel import cluster_merge, dispatch
 
 # max encounters materialized per enumeration slice (see query_graph)
 ENCOUNTER_SLICE_CAP = 32 * 1024 * 1024
@@ -778,11 +779,12 @@ def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
                         host_arrays, device: torch.device, stats: dict):
     """The scale path of query_graph: the encounter stream is enumerated
     and reduced to pairs on ``device`` (ops/encounters.py); the entries
-    stay there, or in host memory above ``cfg.enum_spill_min_encounters``
-    encounters, and the capped walk is valued and replayed in closed form
-    (ops/capwalk.py).  ``stats`` gets the build's path and sizes and the
-    seconds of enumeration + merge, gate + order, valuing + replay and
-    emission."""
+    stay there (in one set up to ``cfg.enum_spill_min_encounters``
+    encounters, in buckets above it) or, above
+    ``encounters.SPILL_DIRECT_MIN``, in host memory, and the capped walk
+    is valued and replayed in closed form (ops/capwalk.py).  ``stats``
+    gets the build's path and sizes and the seconds of enumeration +
+    merge, gate + order, valuing + replay and emission."""
     ents = encounters.build_entries(
         [encounters.ChromJob(starts=s, ends=e, lo=lo, ccum=ccum, rid=rid,
                              irk=irk)
@@ -817,10 +819,11 @@ def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
             print(f'note: {n_cap} queries reached the soft edge cap '
                   f'({edge_threshold}) on the at-scale clustering path; '
                   f'capped walks use first-encounter edge semantics '
-                  f'(measured against the reference walk in fslr_tpu: '
-                  f'partitions equal on 99.6% of adversarial capped frames, '
-                  f'divergence only splits over-cap-bridged clusters; see '
-                  f'ops/capwalk.py)', file=sys.stderr)
+                  f'(measured against the exact walk by '
+                  f'tools/cap_sweep.py: partitions equal on 99.6% of '
+                  f'adversarial capped frames, divergence only splits '
+                  f'over-cap-bridged clusters; see ops/capwalk.py)',
+                  file=sys.stderr)
     out = _emit_outputs(idx_e, eo_e, j_e, bounds, qnames_order)
     stats['emit_s'] = time.perf_counter() - t1
     stats['edges'] = len(out[1])
@@ -829,7 +832,13 @@ def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
 
 def get_subgraphs(edges, node_pos, device: torch.device):
     """Connected components as a list of qname sets, ordered by first-seen
-    node (networkx iteration order)."""
+    node (networkx iteration order).
+
+    Under an active mesh of several entries (parallel/dispatch) the edges
+    are cut into one shard a mesh entry and merged by
+    parallel/cluster_merge.merged_components, as fslr_tpu does; both
+    label a component by its smallest node id, so the sets and their
+    order are the same."""
     if not edges:
         return []
     n = len(node_pos)
@@ -838,7 +847,14 @@ def get_subgraphs(edges, node_pos, device: torch.device):
         names[pos] = name
     earr = np.array([[node_pos[a], node_pos[b]] for a, b in edges],
                     dtype=np.int64)
-    labels = components.connected_components(earr, n, device)
+    if dispatch.sharded():
+        mesh = dispatch.active_mesh()
+        per = -(-len(earr) // mesh.size)
+        labels = cluster_merge.merged_components(
+            mesh, [earr[i * per:(i + 1) * per] for i in range(mesh.size)],
+            n, per)
+    else:
+        labels = components.connected_components(earr, n, device)
     comp_order = []
     comp_members = {}
     for pos in range(n):

@@ -7,8 +7,8 @@ replays the reference's walk exactly; the two may differ on purpose
 frames (tests/test_reference_oracle.py: seeds 700-703, and the four seeds
 where fslr_tpu's adversarial cap sweep found a partition that differs from
 the reference walk) the port's cluster and representative beds, with its
-entries on the device and spilled to the host, must be byte-equal to
-fslr_tpu's device path.
+entries on the device (in-HBM and sharded) and spilled to the host, must
+be byte-equal to fslr_tpu's device path.
 """
 
 import dataclasses
@@ -20,6 +20,7 @@ import torch
 
 from fslr_tpu.config import ClusterConfig
 from fslr_tpu.stages import cluster as jC
+from fslr_tpu_torch.ops import encounters as tenc
 from fslr_tpu_torch.stages import cluster as tC
 from fslr_tpu_torch.stages import mapping_table
 from tests.test_reference_oracle import make_frame
@@ -63,7 +64,8 @@ def _port_beds(path, cfg, tmp_path, tag):
 
 
 @pytest.mark.parametrize('seed', [700, 701, 702, 703, 20, 159, 183, 857])
-def test_capped_frames_equal_fslr_tpu_device_path(tmp_path, seed):
+def test_capped_frames_equal_fslr_tpu_device_path(tmp_path, seed,
+                                                  monkeypatch):
     bed, cfg = _oracle_frame(seed)
     bed = bed.assign(chrom=[f'chr{c}' for c in bed['chrom']])
     path = str(tmp_path / 'S.mappings.bed')
@@ -74,8 +76,10 @@ def test_capped_frames_equal_fslr_tpu_device_path(tmp_path, seed):
     want = _beds(jres, tmp_path, 'jax',
                  lambda b, p: b.to_csv(p, index=False, sep='\t'))
     assert _port_beds(path, cfg, tmp_path, 'in_hbm') == want
-    spill = dataclasses.replace(cfg, enum_spill_min_encounters=1)
-    assert _port_beds(path, spill, tmp_path, 'spill') == want
+    past = dataclasses.replace(cfg, enum_spill_min_encounters=1)
+    assert _port_beds(path, past, tmp_path, 'sharded') == want
+    monkeypatch.setattr(tenc, 'SPILL_DIRECT_MIN', 0)
+    assert _port_beds(path, past, tmp_path, 'spill') == want
     if seed < 700:
         # the exact walk of the host path gives another partition here
         host = dataclasses.replace(cfg, device_enum_min_encounters=1 << 62)

@@ -13,8 +13,10 @@ import torch
 
 from fslr_tpu.config import ClusterConfig
 from fslr_tpu.ops import components as jcomp
+from fslr_tpu.ops import jaccard as jjac
 from fslr_tpu.stages import cluster as jcluster
 from fslr_tpu_torch.ops import components as tcomp
+from fslr_tpu_torch.ops import encounters as tenc
 from fslr_tpu_torch.ops import jaccard as tjac
 from fslr_tpu_torch.stages import cluster as tcluster
 from fslr_tpu_torch.stages import mapping_table
@@ -171,12 +173,15 @@ def test_no_clusters_as_fslr_tpu(tmp_path, case):
     assert files is None and tsub == jsub
 
 
-@pytest.mark.parametrize('store', ['in_hbm', 'spill'])
-def test_device_enumeration_cluster_stage(tmp_path, store):
+@pytest.mark.parametrize('store', ['in_hbm', 'sharded', 'spill'])
+def test_device_enumeration_cluster_stage(tmp_path, store, monkeypatch):
     """cluster_stage through the scale path (ops/encounters.py), with the
-    entries on the device and spilled to the host: beds byte-equal to
-    fslr_tpu's device path, and the same components."""
+    entries on the device (in one set, or sharded) and spilled to the
+    host: beds byte-equal to fslr_tpu's device path, and the same
+    components."""
     cfg = ClusterConfig(device_enum_min_encounters=1)
+    if store == 'spill':
+        monkeypatch.setattr(tenc, 'SPILL_DIRECT_MIN', 0)
     port_cfg = cfg if store == 'in_hbm' else dataclasses.replace(
         cfg, enum_spill_min_encounters=1)
     files, (jsub, tsub) = _run_both(tmp_path, _mixed_dataset(), cfg,
@@ -230,6 +235,33 @@ def test_jaccard_pairs_match_host():
     for k, (a, b) in enumerate(pairs):
         je, ne = tjac.jaccard_host(lists[a], lists[b], 0.8)
         assert abs(float(j[k]) - je) < 1e-6 and int(n_i[k]) == ne, k
+
+
+@pytest.mark.parametrize('M', [32, 4])
+def test_jaccard_pairs_list_api_matches_fslr_tpu(M):
+    """jaccard_pairs' list API on tests/test_cluster.py's 40 pairs (lists
+    of 1-5 intervals) equals fslr_tpu's exactly, j and n_i; with M = 4
+    the pairs with a longer list take the exact host mirror in both."""
+    rng = np.random.default_rng(3)
+    lists1, lists2 = [], []
+    for _ in range(40):
+        def mk():
+            out = []
+            for _ in range(rng.integers(1, 6)):
+                c = int(rng.integers(1, 3))
+                s = int(rng.integers(0, 5000))
+                e = s + int(rng.integers(100, 2000))
+                out.append((c, s, e, float(e - s)))
+            return out
+        lists1.append(mk())
+        lists2.append(mk())
+    assert max(map(len, lists1 + lists2)) > 4
+    want = jjac.jaccard_pairs(lists1, lists2, 0.8, M=M)
+    got = tjac.jaccard_pairs(lists1, lists2, 0.8, M=M, device=CPU)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert tjac.jaccard_pairs([], [], 0.8, device=CPU)[0].shape == (0,)
 
 
 def test_read_mappings_types(tmp_path):

@@ -650,10 +650,11 @@ def _graph(data, dev, **kw):
 
 @pytest.mark.parametrize('case', ['soup', 'soup_capped_small_slices',
                                   'cluster_scale'])
-def test_scale_path_card_equals_cpu(card, case):
+def test_scale_path_card_equals_cpu(card, case, monkeypatch):
     """The scale path of clustering (ops/encounters.py, capwalk.
-    resolve_device) on the card, in-HBM and spilled, equals its CPU run:
-    edges in order, node order, match rows."""
+    resolve_device) on the card, in-HBM, sharded and spilled, equals its
+    CPU run: edges in order, node order, match rows."""
+    from fslr_tpu_torch.ops import encounters
     from fslr_tpu_torch.tools.synth import make_cluster_scale_data
     kw = {}
     if case == 'cluster_scale':
@@ -667,7 +668,9 @@ def test_scale_path_card_equals_cpu(card, case):
     assert path == 'in-HBM' and len(want[1]) > 100
     assert _graph(data, card, **kw) == (want, 'in-HBM')
     assert _graph(data, card, enum_spill_min_encounters=1, **kw) == \
-        (want, 'spill')
+        (want, 'sharded')
+    monkeypatch.setattr(encounters, 'SPILL_DIRECT_MIN', 0)
+    assert _graph(data, card, **kw) == (want, 'spill')
 
 
 def _sw_rows(n, seed=5):

@@ -3,7 +3,8 @@ capwalk.resolve_device) against fslr_tpu's on the CPU.
 
 Each scenario goes through fslr_tpu's query_graph on its host path and on
 its device path (JAX on the CPU), and through the port's on the CPU, with
-the entries on the device (in-HBM) and with them spilled to the host.
+the entries on the device (in-HBM and sharded) and with them spilled to
+the host.
 Edges (in order), node order and match rows must be equal: exact, no
 tolerance.  build_entries itself is held to fslr_tpu's on its bounds and
 entries at several slice sizes.
@@ -32,7 +33,17 @@ from tests.test_torch_env import port_config
 
 CPU = torch.device('cpu')
 HOST = dict(device_enum_min_encounters=1 << 62, exact_cap_replay=False)
-SPILL = dict(enum_spill_min_encounters=1)
+# enum_spill_min_encounters=1 sends every stream past the in-HBM path:
+# to the sharded path, or to the spill where SPILL_DIRECT_MIN is 0
+PAST_IN_HBM = dict(enum_spill_min_encounters=1)
+
+
+def _force_path(path, monkeypatch) -> dict:
+    """The ClusterConfig fields (and, for the spill, SPILL_DIRECT_MIN)
+    that send the port's scale path to ``path``."""
+    if path == 'spill':
+        monkeypatch.setattr(tenc, 'SPILL_DIRECT_MIN', 0)
+    return {} if path == 'in_hbm' else PAST_IN_HBM
 
 
 def _random_soup():
@@ -129,16 +140,17 @@ def jax_graphs():
     return out
 
 
-@pytest.mark.parametrize('path', ['in_hbm', 'spill'])
+@pytest.mark.parametrize('path', ['in_hbm', 'sharded', 'spill'])
 @pytest.mark.parametrize('scenario', list(SCENARIOS))
-def test_scale_path_matches_fslr_tpu(jax_graphs, scenario, path):
+def test_scale_path_matches_fslr_tpu(jax_graphs, scenario, path,
+                                     monkeypatch):
     make, kw = SCENARIOS[scenario]
     j_host, j_dev = jax_graphs[scenario]
     assert j_dev == j_host                     # the reference's own claim
     stats = {}
     got = _port_graph(_data(make()), dc.replace(
-        CFG, **kw, **(SPILL if path == 'spill' else {})), stats)
-    assert stats['path'] == ('spill' if path == 'spill' else 'in-HBM')
+        CFG, **kw, **_force_path(path, monkeypatch)), stats)
+    assert stats['path'] == {'in_hbm': 'in-HBM'}.get(path, path)
     assert got[1] == j_dev[1]                  # edges, in order
     assert got[2] == j_dev[2]                  # node order
     assert got[0] == j_dev[0]                  # match rows
@@ -168,14 +180,22 @@ def _jax_jobs(jobs):
 
 
 def _device_entries(ents, mi, mn):
-    """(ei, eo, run jump) of an in-HBM entry set, from its traversal keys:
-    the run jump of an entry is the first later entry of another (query,
-    interval) run, as fslr_tpu's fetch_all gives it."""
-    (key, eo, base, n), = ents.device_buckets()
-    assert base == 0 and n == ents.E
-    key = key.cpu().numpy()
+    """(ei, eo, run jump) of a device entry set, in-HBM or sharded, from
+    its buckets' traversal keys in global order: the run jump of an entry
+    is the first later entry of another (query, interval) run, as
+    fslr_tpu's fetch_all gives it.  The buckets' bases must be their
+    global offsets."""
+    buckets = ents.device_buckets()
+    sizes = [b[3] for b in buckets]
+    assert [b[2] for b in buckets] == [int(x) for x in
+                                       np.cumsum([0] + sizes)[:-1]]
+    assert sum(sizes) == ents.E
+    key = np.concatenate([np.zeros(0, np.int64)]
+                         + [b[0].cpu().numpy() for b in buckets])
+    eo = np.concatenate([np.zeros(0, np.int32)]
+                        + [b[1].cpu().numpy() for b in buckets])
     run = key // mn
-    return ((run % mi).astype(np.int32), eo.cpu().numpy(),
+    return ((run % mi).astype(np.int32), eo,
             np.searchsorted(key, (run + 1) * mn).astype(np.int32))
 
 
@@ -196,6 +216,7 @@ def test_build_entries_matches_fslr_tpu(scenario, slice_cap, monkeypatch):
     with jax.enable_x64():
         want_spill = jenc._build_entries_spill(_jax_jobs(jobs), *common)
     got = tenc.build_entries(jobs, *common, 4 * slice_cap, 1 << 62, CPU)
+    monkeypatch.setattr(tenc, 'SPILL_DIRECT_MIN', 0)        # the spill
     got_spill = tenc.build_entries(jobs, *common, merge_cap, 0, CPU)
     assert isinstance(got, tenc.EntrySet)
     assert isinstance(got_spill, tenc.HostEntrySet)
@@ -208,8 +229,8 @@ def test_build_entries_matches_fslr_tpu(scenario, slice_cap, monkeypatch):
         np.testing.assert_array_equal(a, b)
 
 
-def test_build_entries_of_nothing():
-    """No encounter: an empty entry set, on both paths."""
+def test_build_entries_of_nothing(monkeypatch):
+    """No encounter: an empty entry set, on the three paths."""
     job = tenc.ChromJob(*(np.zeros(1, np.int64) for _ in range(3)),
                         ccum=np.zeros(2, np.int64),
                         rid=np.zeros(1, np.int64), irk=np.zeros(1, np.int64))
@@ -218,6 +239,12 @@ def test_build_entries_of_nothing():
     assert isinstance(ents, tenc.EntrySet)
     assert ents.E == 0 and list(ents.bounds) == [0, 0]
     assert ents.device_buckets()[0][0].numel() == 0
+    ents = tenc.build_entries(*args, -1, CPU)
+    assert isinstance(ents, tenc.ShardedEntrySet)
+    assert ents.E == 0 and list(ents.bounds) == [0, 0]
+    assert ents.device_buckets() == []
+    assert all(len(x) == 0 for x in _device_entries(ents, 1, 2))
+    monkeypatch.setattr(tenc, 'SPILL_DIRECT_MIN', -1)       # the spill
     ents = tenc.build_entries(*args, -1, CPU)
     assert isinstance(ents, tenc.HostEntrySet)
     assert ents.E == 0 and list(ents.bounds) == [0, 0]
@@ -250,8 +277,8 @@ def test_value_and_replay_host_chunked_matches_flat(tmp_path, monkeypatch):
     bed = make_frame(np.random.default_rng(909), n_groups=3, max_members=14,
                      n_noise=5)
     bed = bed.assign(chrom=[f'chr{c}' for c in bed['chrom']])
-    cfg = ClusterConfig(device_enum_min_encounters=0,
-                        enum_spill_min_encounters=1, edge_threshold=3)
+    cfg = ClusterConfig(device_enum_min_encounters=0, edge_threshold=3)
+    monkeypatch.setattr(tenc, 'SPILL_DIRECT_MIN', 0)        # the spill
     orig = tcw.value_and_replay_host
     outs = {}
     for label, ch in (('flat', 1 << 60), ('tiny', 7)):
@@ -276,15 +303,18 @@ def test_resolve_device_chunked_matches_flat(monkeypatch):
     assert outs['flat'][1] == _jax_graph(data, cfg)[1]
 
 
-@pytest.mark.parametrize('path', ['in_hbm', 'spill'])
-def test_spill_query_ranges_ragged_tail(path):
+@pytest.mark.parametrize('path', ['in_hbm', 'sharded', 'spill'])
+def test_spill_query_ranges_ragged_tail(path, monkeypatch):
     """69 reads: the spill path's query ranges (ceil(69 / 64) = 2 reads)
-    end in a range of one read; both paths equal fslr_tpu's host path."""
+    end in a range of one read; the three paths equal fslr_tpu's host
+    path."""
     data = make_cluster_scale_data(69, group=69, seed=6969)
     assert len(data) == 69
     kw = dict(device_enum_min_encounters=0, exact_cap_replay=False)
+    stats = {}
     got = _port_graph(data, ClusterConfig(
-        **kw, **(SPILL if path == 'spill' else {})))
+        **kw, **_force_path(path, monkeypatch)), stats)
+    assert stats['path'] == {'in_hbm': 'in-HBM'}.get(path, path)
     want = _jax_graph(data, ClusterConfig(**HOST))
     assert got[1] == want[1] and got[2] == want[2] and got[0] == want[0]
     assert len(got[1]) > 100
