@@ -120,12 +120,40 @@ Phases (each raises on failure; the exit code is then not 0):
     time by kernel under torch.profiler and the card's name and power
     limit.
 
+12. cards, only with ``--cards N`` (N >= 2, default 4; it raises on a
+    host with fewer cards and runs phases 2 and 12 alone): the
+    multi-card path on cards 0 .. N-1.  (a) Every kernel on every card
+    against its plain version there, by phase 3's rules (timed on the
+    first card only); (b) slice-10k through the CLI's default mesh
+    (``--mesh-devices 0``): every artifact, BAM and index included,
+    byte-equal to one card's cold and warm runs, each slice kernel
+    launched on every card; (e) the fused step over the N cards equal
+    to one card's, timed in turns (1, N, N, 1); (c) consensus-10k with
+    clustering and --consensus on the N cards: every artifact byte-equal
+    to one card's, every kernel (prof_kernel included) launched on
+    every card; (f) consensus-10k as four files in one process a card
+    (``--device cuda:i --mesh-devices 1``) and with the CLI's default
+    there (``--mesh-devices 0``: each process meshes every card from its
+    own), each equal to one process, every card launching kernels, then
+    get_subgraphs on the N-card mesh at 99,400 reads equal to the plain
+    call, in turns; (d) human-3g cold on one card and cold on the N
+    cards (each card holds the whole index): recall >= 0.99, every
+    artifact byte-equal, and the index's bytes replicated to each other
+    card timed alone.  Each part prints a JSON line with its walls,
+    reads/s and each card's peak device memory.  Phase 12 alone, on a
+    list of cards (one card named several times rehearses it on one):
+
+    python3 -c "import tempfile, torch, chip_smoke as c;
+    c.build_kernels(); c.run_cards([torch.device('cuda', 0)] * 4,
+    tempfile.mkdtemp())"
+
 The line before the last is a JSON object with each kernel's launches on
 the consensus run (``launches``), on human-3g's cold run
 (``launches_human_3g``), on the mesh run (``launches_mesh``), summed
 over the two processes (``launches_two_processes``) and in the fused
-step (``launches_step``), error, times and bound; the last line is
-{"ok": true, "device": {...}}.
+step (``launches_step``), error, times and bound (with ``--cards``: the
+launches of (c), and by card those of (c), (b), (e), (f)'s processes and
+(d)); the last line is {"ok": true, "device": {...}}.
 
 Not run by default: ``sweep_layouts`` times both layouts of the banded
 and tb kernels on every launch of the slice and consensus runs,
@@ -152,6 +180,7 @@ inside the checkout:
     chip_smoke.time_launches('_proof/own.pt', torch.device('cuda'))"
 """
 
+import argparse
 import contextlib
 import csv
 import dataclasses
@@ -624,9 +653,13 @@ def check_sw_edges(dev) -> int:
     return checked
 
 
-def check_kernels(dev) -> dict:
-    """Each kernel vs its plain version on the card; returns per-kernel
-    {max_abs_err, ms, plain_ms}."""
+def check_kernels(dev, timed: bool = True) -> dict:
+    """Each kernel vs its plain version on the card ``dev``; returns
+    per-kernel {max_abs_err, ms, plain_ms} (the times None unless
+    ``timed``)."""
+    def tm(fn, reps):
+        return _time_ms(fn, reps) if timed else None
+
     rng = np.random.default_rng(0)
     sc_ssw = ScoringConfig()
     sc_bwa = ScoringConfig(gap_open_is_first_base=False)
@@ -653,8 +686,8 @@ def check_kernels(dev) -> dict:
     n = np.minimum(np.maximum(tlens, 0), T).astype(np.int64)
     out['sw_kernel'] = dict(
         max_abs_err=_exact('sw_kernel', got, want),
-        ms=_time_ms(lambda: ssw._sw_cuda(*args, **kw), 10),
-        plain_ms=_time_ms(lambda: ssw._sw_torch(*args, **kw), 1),
+        ms=tm(lambda: ssw._sw_cuda(*args, **kw), 10),
+        plain_ms=tm(lambda: ssw._sw_torch(*args, **kw), 1),
         edge_cases=check_sw_edges(dev),
         **_bound('sw_kernel', int(n @ np.minimum(qlens, ssw.QP)),
                  B * ssw.QP + int(n.sum()) + 8 * B + 12 * B))
@@ -678,8 +711,8 @@ def check_kernels(dev) -> dict:
     kept = (q < 4).sum(1)        # the primers' columns, not the code-4 pad
     out['sw_packed_kernel'] = dict(
         max_abs_err=_exact('sw_packed_kernel', got, want),
-        ms=_time_ms(lambda: ssw._sw_packed_cuda(*args, stride=32, **kw), 3),
-        plain_ms=_time_ms(
+        ms=tm(lambda: ssw._sw_packed_cuda(*args, stride=32, **kw), 3),
+        plain_ms=tm(
             lambda: ssw._sw_packed_torch(*args, stride=32, **kw), 1),
         **_bound('sw_packed_kernel', int(n @ kept),
                  B * ssw.QP + int(n.sum()) + 4 * B + 12 * B))
@@ -701,10 +734,10 @@ def check_kernels(dev) -> dict:
     got = banded._banded_cuda(*args, **kw)
     out['banded_kernel'] = dict(
         max_abs_err=_exact('banded_kernel', got, want),
-        ms=_time_ms(lambda: banded._banded_cuda(*args, **kw), 3),
-        layout_ms={c: _time_ms(lambda c=c: banded._banded_cuda(
+        ms=tm(lambda: banded._banded_cuda(*args, **kw), 3),
+        layout_ms={c: tm(lambda c=c: banded._banded_cuda(
             *args, cpl=c, **kw), 3) for c in banded.LAYOUTS},
-        plain_ms=_time_ms(lambda: banded._banded_torch(*args, **kw), 1),
+        plain_ms=tm(lambda: banded._banded_torch(*args, **kw), 1),
         call_bytes=_call_bytes(lambda: banded._banded_cuda(*args, **kw)),
         **_bound('banded_kernel', *_dp_work(args[2].cpu(), Lq, lambda n: n,
                                             1, 12 * N)))
@@ -725,10 +758,10 @@ def check_kernels(dev) -> dict:
     got = traceback._tb_cuda(*args, **kw)
     out['tb_kernel'] = dict(
         max_abs_err=check_tb(got, 'tb_kernel'),
-        ms=_time_ms(lambda: traceback._tb_cuda(*args, **kw), 3),
-        layout_ms={c: _time_ms(lambda c=c: traceback._tb_cuda(
+        ms=tm(lambda: traceback._tb_cuda(*args, **kw), 3),
+        layout_ms={c: tm(lambda c=c: traceback._tb_cuda(
             *args, cpl=c, **kw), 3) for c in traceback.LAYOUTS},
-        plain_ms=_time_ms(lambda: traceback._tb_torch(*args, **kw), 1),
+        plain_ms=tm(lambda: traceback._tb_torch(*args, **kw), 1),
         call_bytes=_call_bytes(lambda: traceback._tb_cuda(*args, **kw)),
         **_bound('tb_kernel', *_dp_work(
             args[2].cpu(), Lq, lambda n: ((n + 7) // 8 * 8).clamp(max=Lq),
@@ -743,9 +776,8 @@ def check_kernels(dev) -> dict:
     walked = traceback._walk_cuda(bits, score, qend, lane)
     out['walk_kernel'] = dict(
         max_abs_err=_exact('walk_kernel', walked, walk_plain()),
-        ms=_time_ms(lambda: traceback._walk_cuda(bits, score, qend, lane),
-                    3),
-        plain_ms=_time_ms(walk_plain, 1),
+        ms=tm(lambda: traceback._walk_cuda(bits, score, qend, lane), 3),
+        plain_ms=tm(walk_plain, 1),
         **_bound('walk_kernel', *_walk_work(walked[0].cpu(), T)))
     del bits, got, want, walked
 
@@ -762,8 +794,8 @@ def check_kernels(dev) -> dict:
         raise AssertionError('prof_kernel: unexpected row scores')
     out['prof_kernel'] = dict(
         max_abs_err=err, edge_cases=check_prof_walk_edges(dev),
-        ms=_time_ms(lambda: profile_align._prof_cuda(*args, **kw), 3),
-        plain_ms=_time_ms(lambda: profile_align._prof_torch(*args, **kw), 1),
+        ms=tm(lambda: profile_align._prof_cuda(*args, **kw), 3),
+        plain_ms=tm(lambda: profile_align._prof_torch(*args, **kw), 1),
         **_bound('prof_kernel', *_dp_work(
             args[3].cpu(), Lq, lambda n: ((n + 7) // 8 * 8).clamp(max=Lq),
             8, 12 * N + N * Lq * 64)))
@@ -774,9 +806,8 @@ def check_kernels(dev) -> dict:
         want[3], qend, lane, T))
     out['walk_kernel']['prof_bits'] = dict(
         max_abs_err=_exact('walk_kernel (profile codes)', walked, plain),
-        ms=_time_ms(lambda: traceback._walk_cuda(bits, score, qend, lane),
-                    3), **_bound('walk_kernel', *_walk_work(walked[0].cpu(),
-                                                             T)))
+        ms=tm(lambda: traceback._walk_cuda(bits, score, qend, lane), 3),
+        **_bound('walk_kernel', *_walk_work(walked[0].cpu(), T)))
     del bits, got, want, walked, plain
 
     # mask_kernel: the filter's batch at L = 3072
@@ -805,8 +836,8 @@ def check_kernels(dev) -> dict:
     out['mask_kernel'] = dict(
         max_abs_err=float((got - want).abs().max()),
         decisions_differing=n_diff, masked=int((want >= thr).sum()),
-        ms=_time_ms(lambda: tantan._posterior_cuda(st, cfg), 3),
-        plain_ms=_time_ms(lambda: tantan._posterior_torch(st, cfg), 1),
+        ms=tm(lambda: tantan._posterior_cuda(st, cfg), 3),
+        plain_ms=tm(lambda: tantan._posterior_torch(st, cfg), 1),
         call_bytes=mem,
         **_bound('mask_kernel', B * L * (cfg.mask_max_period + 1),
                  B * L * 5))
@@ -818,15 +849,17 @@ def check_kernels(dev) -> dict:
 
 def _run(root, ref, fq, tag, dev, exact, consensus=False, mask=None,
          regions=None):
-    """One run: through the CLI with exact CIGARs (its default; clustering
-    and consensus with ``consensus``, else --skip-clustering; with
-    ``mask``, --reference-mask; with ``regions``, --regions), through
-    run_pipeline without."""
+    """One run on ``dev`` alone: through the CLI with exact CIGARs (its
+    default; clustering and consensus with ``consensus``, else
+    --skip-clustering; with ``mask``, --reference-mask; with ``regions``,
+    --regions; --mesh-devices 1, since the CLI's default meshes every
+    card of a host with several), through run_pipeline without."""
     out = os.path.join(root, f'out_{tag}')
     if exact:
         from fslr_tpu_torch.cli import main
         main(['--name', 'S', '--out', out, '--ref', ref, '--primers',
-              '21q1,17p6', '--basecalled', fq, '--device', str(dev)]
+              '21q1,17p6', '--basecalled', fq, '--device', str(dev),
+              '--mesh-devices', '1']
              + (['--consensus'] if consensus else ['--skip-clustering'])
              + (['--reference-mask', mask] if mask else [])
              + (['--regions', regions] if regions else []))
@@ -1383,50 +1416,76 @@ def _split_reads(fq, n_files):
     return len(recs)
 
 
-def _two_processes(argv, out, root):
-    """The CLI in two processes on this card (``--n-processes 2``, gloo at
-    a free local port), each with its launch counts set to 0 before it
-    and written to a file after it.  Returns (wall seconds, launch counts
-    summed over the processes)."""
+def _processes(argv, out, root, devices):
+    """The CLI in one process a device of ``devices`` (``--n-processes
+    len(devices)``, process i with ``--device devices[i]``, gloo at a free
+    local port), each with its launch counts set to 0 before it and
+    written to a file after it, with its launches by card and each card's
+    peak device memory.  Returns (wall seconds, launch counts summed over
+    the processes, [{'launches': {kernel: {card: n}}, 'peak_bytes': {card:
+    bytes}} a process])."""
+    n = len(devices)
     with socket.socket() as s:
         s.bind(('127.0.0.1', 0))
         coord = f'127.0.0.1:{s.getsockname()[1]}'
-    code = ('import json, sys\n'
+    code = ('import json, sys, torch\n'
             'from fslr_tpu_torch import cli, kernels\n'
             'from fslr_tpu_torch.parallel import distributed\n'
             f'distributed.TIMEOUT_S = {PAR_GROUP_TIMEOUT_S}\n'
             'kernels.reset_launches()\n'
             'cli.main(sys.argv[2:])\n'
             'with open(sys.argv[1], "w") as fh:\n'
-            '    json.dump(kernels.launch_counts(), fh)\n')
-    counts = [os.path.join(root, f'launches_p{pid}.json') for pid in (0, 1)]
+            '    json.dump(dict(launches=kernels.launch_counts(True),\n'
+            '                   peak_bytes={i: torch.cuda.max_memory_'
+            'allocated(i)\n'
+            '                   for i in range(torch.cuda.device_count())}'
+            '), fh)\n')
+    counts = [os.path.join(root, f'launches_p{pid}.json')
+              for pid in range(n)]
+    logs = [os.path.join(root, f'log_p{pid}.txt') for pid in range(n)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, '-c', code, counts[pid], *argv, '--out', out,
-         '--n-processes', '2', '--process-id', str(pid),
-         '--coordinator', coord],
-        cwd=os.path.dirname(os.path.abspath(__file__)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-        for pid in (0, 1)]
+    procs = []
     try:
-        logs = [p.communicate(timeout=PAR_PROC_TIMEOUT_S)[0] for p in procs]
+        for pid in range(n):
+            with open(logs[pid], 'wb') as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, '-c', code, counts[pid], *argv, '--out',
+                     out, '--device', str(devices[pid]), '--n-processes',
+                     str(n), '--process-id', str(pid), '--coordinator',
+                     coord],
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    stdout=log, stderr=subprocess.STDOUT))
+        # a failed process ends the run at once: its peers would wait for
+        # it until their group's timeout
+        deadline = time.monotonic() + PAR_PROC_TIMEOUT_S
+        while any(p.poll() is None for p in procs) and \
+                not any(p.poll() for p in procs) and \
+                time.monotonic() < deadline:
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    for pid, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode:
-            raise AssertionError(
-                f'process {pid} of 2 exited with {p.returncode}:\n'
-                + log.decode(errors='replace')[-3000:])
+    # the first process that failed on its own, before those killed here
+    failed = sorted((p.returncode < 0, pid) for pid, p in enumerate(procs)
+                    if p.returncode)
+    if failed:
+        pid = failed[0][1]
+        with open(logs[pid], 'rb') as fh:
+            tail = fh.read()[-3000:].decode(errors='replace')
+        raise AssertionError(f'process {pid} of {n} exited with '
+                             f'{procs[pid].returncode}:\n{tail}')
     launches = dict.fromkeys(KERNELS, 0)
+    per_process = []
     for path in counts:
         with open(path) as fh:
-            for k, v in json.load(fh).items():
-                launches[k] += v
-    return wall, launches
+            got = json.load(fh)
+        per_process.append(got)
+        for k, by_card in got['launches'].items():
+            launches[k] += sum(by_card.values())
+    return wall, launches, per_process
 
 
 def _timed(fn, want, what):
@@ -1494,13 +1553,13 @@ def run_parallel(dev, root, slice_ref, slice_fq, smi) -> dict:
     ref, fq = make_dataset(croot, CONS_READS, CONS_GROUPS)
     n = _split_reads(fq, PAR_FILES)
     argv = ['--name', 'C', '--ref', ref, '--primers', '21q1,17p6',
-            '--basecalled', fq, '--consensus', '--device', str(dev)]
+            '--basecalled', fq, '--consensus', '--mesh-devices', '1']
     outs = {}
     for procs in (1, 4):
         outs[procs] = os.path.join(croot, f'out_procs{procs}')
         wall, launches = _timed(
             lambda: main(argv + ['--out', outs[procs], '--procs',
-                                 str(procs)]),
+                                 str(procs), '--device', str(dev)]),
             KERNELS, f'consensus-10k, --procs {procs}')
         runs.append(dict(run=f'consensus-10k in {PAR_FILES} files, one '
                          f'process, --procs {procs}', reads=n, wall_s=wall,
@@ -1508,7 +1567,7 @@ def run_parallel(dev, root, slice_ref, slice_fq, smi) -> dict:
     check_clusters(os.path.join(outs[1], 'C'), CONS_READS, CONS_GROUPS,
                    CONS_REF_BP)
     out2 = os.path.join(croot, 'out_two_processes')
-    wall, two_launches = _two_processes(argv, out2, croot)
+    wall, two_launches, _ = _processes(argv, out2, croot, (dev, dev))
     missing = [k for k in KERNELS if two_launches[k] <= 0]
     if missing:
         raise AssertionError(f'two processes: {missing} not launched')
@@ -2066,6 +2125,448 @@ def check_parse(ref_path):
           f'+ encode) {t_records:.3f} s')
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the multi-card path (python3 chip_smoke.py --cards N)
+# ---------------------------------------------------------------------------
+
+CARDS_DEFAULT = 4
+
+
+def _distinct(cards) -> list:
+    """The cards of ``cards``, each once, in order."""
+    return list(dict.fromkeys(cards))
+
+
+def _sync(cards):
+    for d in _distinct(cards):
+        torch.cuda.synchronize(d)
+
+
+def _card_keys(by_card: dict) -> dict:
+    """{card index: n} from a JSON object (its keys are strings)."""
+    return {int(k): v for k, v in by_card.items()}
+
+
+def _summed(by_cards) -> dict:
+    """{card index: sum} over objects {card: n} (JSON's keys are
+    strings)."""
+    out: dict = {}
+    for by in by_cards:
+        for card, v in _card_keys(by).items():
+            out[card] = out.get(card, 0) + v
+    return out
+
+
+def _on_every_card(by_card: dict, names, cards, what):
+    """Each kernel of ``names`` must have been launched on every card of
+    ``cards`` (``by_card``: {kernel: {card index: launches}})."""
+    for name in names:
+        got = _card_keys(by_card[name])
+        missing = [d.index for d in _distinct(cards)
+                   if got.get(d.index, 0) <= 0]
+        if missing:
+            raise AssertionError(f'{what}: {name} was not launched on '
+                                 f'cards {missing}')
+
+
+def _card_run(cards, argv) -> dict:
+    """The CLI's run of ``argv`` (with --name and --out) on ``cards``: on
+    one card with --mesh-devices 1, on several with the mesh the CLI
+    gives them (--mesh-devices 0 when they are every visible card; a card
+    named several times, as in a rehearsal on one card, is meshed as
+    named).  Launch counts and each card's peak memory are set to 0 just
+    before it.  Returns its base path, wall seconds, launches by card,
+    peak bytes by card and stage seconds."""
+    from fslr_tpu_torch.cli import _parser, config_from_args, mesh_from_args
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.pipeline import run_pipeline
+    dev = cards[0]
+    flag = ('1' if len(cards) == 1 else
+            '0' if len(cards) == torch.cuda.device_count() else
+            str(len(cards)))
+    args = _parser().parse_args(argv + ['--device', str(dev),
+                                        '--mesh-devices', flag])
+    mesh = (mesh_from_args(args, dev) if len(set(cards)) == len(cards)
+            else Mesh(tuple(cards)))
+    if (mesh.devices if mesh else (dev,)) != tuple(cards):
+        raise AssertionError(f'the CLI meshes {mesh}, not {cards}')
+    _sync(cards)
+    for d in _distinct(cards):
+        torch.cuda.reset_peak_memory_stats(d)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run_pipeline(config_from_args(args), dev, mesh=mesh)
+    _sync(cards)
+    wall = time.perf_counter() - t0
+    base = os.path.join(args.out, args.name)
+    with open(base + '.timings.json') as fh:
+        stages = json.load(fh)['timings_s']
+    return dict(base=base, wall_s=wall,
+                launches=kernels.launch_counts(by_device=True),
+                peak_bytes={d.index: torch.cuda.max_memory_allocated(d)
+                            for d in _distinct(cards)},
+                stages=stages)
+
+
+def _same_outputs(a: str, b: str, what: str) -> int:
+    """Every file under run folders ``a`` and ``b`` byte-equal, but the
+    timings and the consensus stage's reads without primers, which are
+    named by a uuid (as in ``_tree``); returns how many."""
+    def files(root):
+        return sorted(os.path.relpath(os.path.join(dp, n), root)
+                      for dp, _, names in os.walk(root) for n in names
+                      if not n.endswith(('.timings.json', '.no_primers.fq')))
+    fa, fb = files(a), files(b)
+    if fa != fb:
+        raise AssertionError(f'{what}: the files differ: '
+                             f'{sorted(set(fa) ^ set(fb))}')
+    for rel in fa:
+        with open(os.path.join(a, rel), 'rb') as x, \
+                open(os.path.join(b, rel), 'rb') as y:
+            if x.read() != y.read():
+                raise AssertionError(f'{what}: {rel} differs')
+    return len(fa)
+
+
+def _run_line(run: str, r: dict, reads: int) -> dict:
+    return dict(run=run, wall_s=r['wall_s'], reads_per_s=reads / r['wall_s'],
+                peak_bytes=r['peak_bytes'])
+
+
+def cards_kernels(cards) -> dict:
+    """(a) Every kernel on every card against its plain version there, by
+    phase 3's rules (check_kernels, timed on the first card only).
+    Returns {card index: check_kernels' result}."""
+    out = {}
+    for i, d in enumerate(_distinct(cards)):
+        t0 = time.perf_counter()
+        with torch.cuda.device(d):
+            out[d.index] = check_kernels(d, timed=i == 0)
+        print(f'cards (a): every kernel on {d} == its plain version '
+              f'({time.perf_counter() - t0:.1f} s)', flush=True)
+    return out
+
+
+def cards_slice(cards, root) -> dict:
+    """(b) slice-10k through the CLI on the mesh of ``cards``: every
+    artifact, BAM and index included, byte-equal to one card's cold and
+    warm runs, every slice kernel launched on every card.  Returns the
+    data and the mesh run."""
+    root = os.path.join(root, 'cards_slice')
+    os.makedirs(root)
+    ref, fq = make_dataset(root, SLICE_READS, 20, ref_mb=SLICE_REF_BP)
+
+    def argv(tag):
+        return ['--name', 'S', '--out', os.path.join(root, f'out_{tag}'),
+                '--ref', ref, '--primers', '21q1,17p6', '--basecalled', fq,
+                '--skip-clustering']
+
+    one_cold = _card_run(cards[:1], argv('one_cold'))
+    mesh = _card_run(cards, argv('mesh'))
+    one = _card_run(cards[:1], argv('one'))
+    for r, what in ((one_cold, 'one card, cold'), (one, 'one card')):
+        n = _same_outputs(os.path.dirname(r['base']),
+                          os.path.dirname(mesh['base']),
+                          f'slice-10k on {len(cards)} cards vs {what}')
+    _on_every_card(mesh['launches'], SLICE_PATH, cards, 'slice-10k')
+    recall = _recall(_read_bed(mesh['base'] + '.mappings.bed'), 'chrB',
+                     group_span(SLICE_REF_BP, 20), SLICE_READS)
+    if recall < 0.99:
+        raise AssertionError(f'slice-10k on the cards: recall {recall}')
+    print('cards (b): ' + json.dumps(dict(
+        phase='cards-slice', cards=[str(d) for d in cards],
+        artifacts_byte_equal=n, recall=recall,
+        runs=[_run_line('one card, cold', one_cold, SLICE_READS),
+              _run_line(f'{len(cards)} cards', mesh, SLICE_READS),
+              _run_line('one card', one, SLICE_READS)],
+        launches=mesh['launches'],
+        stages={'one card': one['stages'],
+                f'{len(cards)} cards': mesh['stages']})), flush=True)
+    return dict(ref=ref, fq=fq, launches=mesh['launches'])
+
+
+def cards_consensus(cards, root) -> dict:
+    """(c) consensus-10k (clustering and --consensus) on the mesh of
+    ``cards``: every artifact (cluster beds, FASTAs, counts, BAMs)
+    byte-equal to one card's run, every kernel, prof_kernel included,
+    launched on every card.  Returns the mesh run's launches by card."""
+    root = os.path.join(root, 'cards_consensus')
+    os.makedirs(root)
+    ref, fq = make_dataset(root, CONS_READS, CONS_GROUPS)
+    runs = {}
+    for tag, cs in (('one', cards[:1]), ('mesh', cards)):
+        runs[tag] = _card_run(cs, [
+            '--name', 'S', '--out', os.path.join(root, f'out_{tag}'),
+            '--ref', ref, '--primers', '21q1,17p6', '--basecalled', fq,
+            '--consensus'])
+    n = _same_outputs(os.path.dirname(runs['one']['base']),
+                      os.path.dirname(runs['mesh']['base']),
+                      f'consensus-10k on {len(cards)} cards vs one card')
+    planted, clusters = check_clusters(runs['mesh']['base'], CONS_READS,
+                                       CONS_GROUPS, CONS_REF_BP)
+    _on_every_card(runs['mesh']['launches'], KERNELS, cards,
+                   'consensus-10k')
+    print('cards (c): ' + json.dumps(dict(
+        phase='cards-consensus', cards=[str(d) for d in cards],
+        artifacts_byte_equal=n, clusters=clusters, planted=planted,
+        runs=[_run_line('one card', runs['one'], CONS_READS),
+              _run_line(f'{len(cards)} cards', runs['mesh'], CONS_READS)],
+        launches=runs['mesh']['launches'],
+        stages={'one card': runs['one']['stages'],
+                f'{len(cards)} cards': runs['mesh']['stages']})),
+        flush=True)
+    return runs['mesh']['launches']
+
+
+def _replicate_s(cards, sizes) -> list:
+    """Seconds of ``parallel.mesh.replicate`` of tensors of ``sizes``
+    bytes from the first card to each other card, twice each."""
+    from fslr_tpu_torch.parallel.mesh import Mesh, replicate
+    src = [torch.empty(b, dtype=torch.uint8, device=cards[0]) for b in sizes]
+    out = []
+    for d in _distinct(cards)[1:]:
+        secs = []
+        for _ in range(2):
+            _sync((cards[0], d))
+            t0 = time.perf_counter()
+            copies = replicate(Mesh((cards[0], d)), *src)
+            _sync((cards[0], d))
+            secs.append(time.perf_counter() - t0)
+            del copies
+        out.append(dict(card=str(d), seconds=secs,
+                        gb_per_s=sum(sizes) / min(secs) / 1e9))
+    del src
+    torch.cuda.empty_cache()
+    return out
+
+
+def cards_human(cards, root) -> dict:
+    """(d) human-3g (--reference-mask, 4 shards) cold on one card, then
+    cold and warm on the mesh of ``cards`` (every card holds the whole
+    index): recall >= 0.99, every artifact byte-equal to the one card's,
+    the slice kernels launched on every card; the replication of the
+    index's bytes to each other card timed alone.  Returns the cold mesh
+    run's launches by card."""
+    from fslr_tpu_torch.tools.synth import (GRCH38,
+                                            make_grch38_layout_dataset)
+    root = os.path.join(root, 'cards_human')
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    ref, fq, mask = make_grch38_layout_dataset(root, HUMAN_READS,
+                                               HUMAN_GROUPS)
+    data_s = time.perf_counter() - t0
+    k = PipelineConfig().align.seed_k
+    cache = f'{ref}.fslr_k{k}.npz'
+    runs = {}
+    for tag, cs in (('one card, cold', cards[:1]),
+                    (f'{len(cards)} cards, cold', cards),
+                    (f'{len(cards)} cards, warm', cards)):
+        if tag.endswith('cold') and os.path.exists(cache):
+            os.remove(cache)
+        runs[tag] = _card_run(cs, [
+            '--name', 'S', '--out', os.path.join(root, f'out_{len(runs)}'),
+            '--ref', ref, '--primers', '21q1,17p6', '--basecalled', fq,
+            '--skip-clustering', '--reference-mask', mask])
+    one, cold, warm = runs.values()
+    for tag, r in list(runs.items())[1:]:
+        n_same = _same_outputs(os.path.dirname(one['base']),
+                               os.path.dirname(r['base']),
+                               f'human-3g, {tag} vs one card')
+        _on_every_card(r['launches'], SLICE_PATH, cards, f'human-3g, {tag}')
+    recall = _recall(_read_bed(cold['base'] + '.mappings.bed'), 'chrX',
+                     group_span(dict(GRCH38)['chrX'], HUMAN_GROUPS),
+                     HUMAN_READS)
+    if recall < 0.99:
+        raise AssertionError(f'human-3g on the cards: recall {recall}')
+    sizes = _index_bytes(ref, [length for _, length in GRCH38], k)
+    if len(sizes) != HUMAN_SHARDS:
+        raise AssertionError(f'{len(sizes)} shards, not {HUMAN_SHARDS}')
+    print('cards (d): ' + json.dumps(dict(
+        phase='cards-human-3g', cards=[str(d) for d in cards],
+        dataset_s=data_s, artifacts_byte_equal=n_same, recall=recall,
+        index_bytes=sizes,
+        runs=[_run_line(tag, r, HUMAN_READS) for tag, r in runs.items()],
+        index_upload_s={tag: r['stages'].get('index_upload')
+                        for tag, r in runs.items()},
+        replicate=_replicate_s(cards, sizes),
+        launches=cold['launches'],
+        stages={tag: r['stages'] for tag, r in runs.items()})), flush=True)
+    return cold['launches']
+
+
+def cards_step(cards, ref_path, fq_dir) -> dict:
+    """(e) The fused step on slice-10k's reads at L = 3072 over the mesh
+    of ``cards`` (make_sharded_step) against one card's step: equal
+    outputs, counters included, the step's kernels launched on every
+    card, warm calls timed in turns (1, N, N, 1).  Returns the sharded
+    call's launches by card."""
+    from fslr_tpu_torch.io.fastq import read_fastx
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.parallel.step import (make_device_step,
+                                              make_sharded_step)
+    from fslr_tpu_torch.tools.synth import step_inputs
+    dev = cards[0]
+    seqs = [r.sequence for f in sorted(os.listdir(fq_dir))
+            for r in read_fastx(os.path.join(fq_dir, f))]
+    args = step_inputs(ref_path, seqs, STEP_L, dev)
+    config = PipelineConfig()
+    NP = int(args[2].shape[0])
+    n_seed = (STEP_L - config.align.seed_k) // config.align.seed_stride + 1
+    steps = {1: make_device_step(config, NP, STEP_L, n_seed),
+             len(cards): make_sharded_step(Mesh(tuple(cards)), config, NP,
+                                           STEP_L, n_seed)}
+    want = steps[1](*args)
+    _sync(cards)
+    kernels.reset_launches()
+    got = steps[len(cards)](*args)
+    _sync(cards)
+    launches = kernels.launch_counts(by_device=True)
+    _on_every_card(launches, STEP_PATH, cards, 'the fused step')
+    _same_step(got, want, f'the fused step on {len(cards)} cards')
+    del got, want
+    secs = {1: [], len(cards): []}
+    for n in (1, len(cards), len(cards), 1):
+        _sync(cards)
+        t0 = time.perf_counter()
+        steps[n](*args)
+        _sync(cards)
+        secs[n].append(time.perf_counter() - t0)
+    print('cards (e): ' + json.dumps(dict(
+        phase='cards-step', cards=[str(d) for d in cards], reads=len(seqs),
+        L=STEP_L, one_card_s=secs[1], cards_s=secs[len(cards)],
+        launches=launches)), flush=True)
+    return launches
+
+
+def cards_processes(cards, root) -> dict:
+    """(f) consensus-10k as PAR_FILES files in one CLI process a card
+    (--device cuda:i --mesh-devices 1) and, as the CLI's default there,
+    with --mesh-devices 0 (each process meshes every card from its own),
+    each against one process on the first card: beds, FASTAs, purity CSV
+    and counts byte-equal, BAM records equal as a multiset; every card
+    launched kernels.  Then get_subgraphs on the mesh of ``cards`` at
+    SPILL_READS reads against the plain call, in turns.  Returns the
+    launches by card summed over the one-process-a-card run."""
+    from fslr_tpu_torch.config import ClusterConfig
+    from fslr_tpu_torch.parallel import dispatch
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.stages.cluster import get_subgraphs
+    from fslr_tpu_torch.tools.synth import make_cluster_scale_data
+    root = os.path.join(root, 'cards_processes')
+    os.makedirs(root)
+    ref, fq = make_dataset(root, CONS_READS, CONS_GROUPS)
+    n = _split_reads(fq, PAR_FILES)
+    argv = ['--name', 'C', '--ref', ref, '--primers', '21q1,17p6',
+            '--basecalled', fq, '--consensus', '--mesh-devices']
+    runs, outs, pers = [], {}, {}
+    for tag, cs, flag in (('one process', cards[:1], '1'),
+                          (f'{len(cards)} processes', cards, '1'),
+                          (f'{len(cards)} processes, --mesh-devices 0',
+                           cards, '0')):
+        outs[tag] = os.path.join(root, f'out_{len(outs)}')
+        wall, _, pers[tag] = _processes(argv + [flag], outs[tag], root, cs)
+        for pid, p in enumerate(pers[tag]):
+            if not _summed(p['launches'].values()).get(cs[pid].index):
+                raise AssertionError(f'{tag}: process {pid} launched no '
+                                     f'kernel on {cs[pid]}')
+        runs.append(dict(run=tag, wall_s=wall, reads_per_s=n / wall,
+                         peak_bytes_summed_over_processes=_summed(
+                             p['peak_bytes'] for p in pers[tag]),
+                         launches=[p['launches'] for p in pers[tag]]))
+    first = next(iter(outs.values()))
+    same = {tag: _same_trees(first, out, tag)
+            for tag, out in list(outs.items())[1:]}
+    print('cards (f): ' + json.dumps(dict(
+        phase='cards-processes', cards=[str(d) for d in cards], reads=n,
+        files=PAR_FILES, artifacts_equal=same, runs=runs)), flush=True)
+
+    data = make_cluster_scale_data(SPILL_READS, CLUSTER_GROUP, seed=7)
+    _, edges, node_pos = _query_graph(data, cards[0],
+                                      ClusterConfig(exact_cap_replay=False))
+    res, secs = {}, {'plain': [], 'mesh': []}
+    for kind in ('plain', 'mesh', 'mesh', 'plain'):
+        t0 = time.perf_counter()
+        with (dispatch.use_mesh(Mesh(tuple(cards))) if kind == 'mesh'
+              else contextlib.nullcontext()):
+            res[kind] = get_subgraphs(edges, node_pos, cards[0])
+        secs[kind].append(time.perf_counter() - t0)
+    if res['mesh'] != res['plain'] or \
+            len(res['plain']) != len(data) // CLUSTER_GROUP:
+        raise AssertionError(f'get_subgraphs on {len(cards)} cards differs')
+    print('cards (f): ' + json.dumps(dict(
+        phase='cards-mesh-merge', reads=len(data), edges=len(edges),
+        components=len(res['plain']), cards=[str(d) for d in cards],
+        plain_s=secs['plain'], mesh_s=secs['mesh'])), flush=True)
+    return {k: _summed(p['launches'][k]
+                       for p in pers[f'{len(cards)} processes'])
+            for k in KERNELS}
+
+
+def cards_default_human(cards, root) -> dict:
+    """Not run by phase 12, since running out of memory is one of its
+    answers: human-3g cold, its reads as PAR_FILES files, in one CLI
+    process a card with the CLI's default (--mesh-devices 0: each process
+    meshes every card from its own, so each card holds one copy of the
+    index a process) against one process on the first card
+    (--mesh-devices 1).  Prints each run's wall and each card's peak
+    device memory summed over the processes, whether their artifacts are
+    equal, or the tail of the log of a process that failed:
+
+        python3 -c "import tempfile, torch, chip_smoke as c;
+        c.build_kernels(); c.cards_default_human([torch.device('cuda', i)
+        for i in range(4)], tempfile.mkdtemp())"
+    """
+    from fslr_tpu_torch.tools.synth import make_grch38_layout_dataset
+    root = os.path.join(root, 'cards_default_human')
+    os.makedirs(root)
+    ref, fq, mask = make_grch38_layout_dataset(root, HUMAN_READS,
+                                               HUMAN_GROUPS)
+    n = _split_reads(fq, PAR_FILES)
+    cache = f'{ref}.fslr_k{PipelineConfig().align.seed_k}.npz'
+    argv = ['--name', 'S', '--ref', ref, '--primers', '21q1,17p6',
+            '--basecalled', fq, '--skip-clustering', '--reference-mask',
+            mask, '--mesh-devices']
+    runs, outs = {}, []
+    for tag, cs, flag in (('one process', cards[:1], '1'),
+                          (f'{len(cards)} processes, --mesh-devices 0',
+                           cards, '0')):
+        if os.path.exists(cache):
+            os.remove(cache)                     # each run cold
+        outs.append(os.path.join(root, f'out_{len(outs)}'))
+        try:
+            wall, _, per = _processes(argv + [flag], outs[-1], root, cs)
+        except AssertionError as e:     # a failed process is the finding
+            runs[tag] = dict(failed=str(e)[-1500:])
+            continue
+        runs[tag] = dict(wall_s=wall, reads_per_s=n / wall,
+                         peak_bytes_summed_over_processes=_summed(
+                             p['peak_bytes'] for p in per))
+    equal = (_same_trees(*outs, 'human-3g, the CLI default')
+             if all('failed' not in r for r in runs.values()) else None)
+    out = dict(phase='cards-default-human-3g',
+               cards=[str(d) for d in cards], reads=n, files=PAR_FILES,
+               artifacts_equal=equal, runs=runs)
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def run_cards(cards, root) -> dict:
+    """Phase 12 on ``cards`` (a list of torch.device; a card may be named
+    several times to rehearse the control flow on one card): (a) every
+    kernel on every card, (b) slice-10k, (e) the fused step, (c)
+    consensus-10k, (f) processes and the mesh merge, (d) human-3g (last:
+    it holds the most memory).  Returns the kernels' checks and launches
+    by card of each part."""
+    checks = cards_kernels(cards)
+    sl = cards_slice(cards, root)
+    out = dict(checks=checks, slice=sl['launches'],
+               step=cards_step(cards, sl['ref'], sl['fq']),
+               consensus=cards_consensus(cards, root),
+               processes=cards_processes(cards, root),
+               human=cards_human(cards, root))
+    return out
+
+
 DP_WRAPPERS = {   # the banded DP kernels: module, wrapper, (narrow, wide)
     'banded_kernel': (banded, '_banded_cuda', banded.LAYOUTS),
     'tb_kernel': (traceback, '_tb_cuda', traceback.LAYOUTS),
@@ -2299,8 +2800,70 @@ def sweep_layouts(dev, reps: int = 3) -> list:
     return out
 
 
-def main():
+def _kernels_line(checks: dict, launches: dict, **by_card) -> dict:
+    """The kernels JSON object: ``checks`` from check_kernels (its times
+    and bound), ``launches`` the main run's counts; each of ``by_card``
+    another run's counts, by kernel, under its own key."""
+    return {'kernels': [
+        dict(name=name, route='cuda', source=src, replaces=rep,
+             launches=launches[name],
+             **{k: v[name] for k, v in by_card.items()},
+             max_abs_err=checks[name]['max_abs_err'],
+             ms=checks[name]['ms'], plain_ms=checks[name]['plain_ms'],
+             bound_ms=checks[name]['bound_ms'],
+             bound_by=checks[name]['bound_by'], library_ms=None)
+        for name, (src, rep) in KERNELS.items()]}
+
+
+def main_cards(n: int, smi: str):
+    """Phase 12 on the first ``n`` cards (n >= 2); raises on a host with
+    fewer."""
+    if n < 2:
+        raise ValueError(f'--cards {n}: phase 12 needs at least 2 cards')
+    if torch.cuda.device_count() < n:
+        raise RuntimeError(f'--cards {n}: {torch.cuda.device_count()} '
+                           'cards are visible')
+    for line in smi.splitlines()[1:]:
+        print(line)
+    cards = [torch.device('cuda', i) for i in range(n)]
+    build_kernels()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='fslr_cards_') as root:
+        res = run_cards(cards, root)
+    print(f'phase 12 on {n} cards: {time.perf_counter() - t0:.1f} s')
+    checks = res['checks']
+    first = dict(checks[0])
+    for name in KERNELS:
+        first[name] = dict(first[name], max_abs_err=max(
+            c[name]['max_abs_err'] for c in checks.values()))
+    print(json.dumps(_kernels_line(
+        first, {k: sum(v.values()) for k, v in res['consensus'].items()},
+        launches_cards=res['consensus'], launches_cards_slice=res['slice'],
+        launches_cards_step=res['step'],
+        launches_cards_processes=res['processes'],
+        launches_cards_human_3g=res['human'])))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description='Smoke test of fslr_tpu_torch '
+                                 'on NVIDIA cards (see the module doc).')
+    ap.add_argument('--cards', type=int, nargs='?', const=CARDS_DEFAULT,
+                    help='run phase 12, the multi-card path, on this many '
+                         f'cards instead of phases 3-11 on one (default '
+                         f'{CARDS_DEFAULT}); raises on a host with fewer')
+    opts = ap.parse_args(argv)
     smi = preflight()
+    if opts.cards is not None:
+        main_cards(opts.cards, smi)
+    else:
+        main_one(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+def main_one(smi: str):
+    """Phases 2-11 on one card."""
     dev = torch.device('cuda')
     build_kernels()
     checks = check_kernels(dev)
@@ -2313,20 +2876,11 @@ def main():
         parallel = run_parallel(dev, root, *slice_data, smi)
         step = run_step(dev, *slice_data, smi)
         human = run_human(dev, root)
-    print(json.dumps({'kernels': [
-        dict(name=name, route='cuda', source=src, replaces=rep,
-             launches=launches[name], launches_human_3g=human[name],
-             launches_mesh=parallel['mesh'][name],
-             launches_two_processes=parallel['two_processes'][name],
-             launches_step=step[name],
-             max_abs_err=checks[name]['max_abs_err'],
-             ms=checks[name]['ms'], plain_ms=checks[name]['plain_ms'],
-             bound_ms=checks[name]['bound_ms'],
-             bound_by=checks[name]['bound_by'], library_ms=None)
-        for name, (src, rep) in KERNELS.items()]}))
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-        'count': torch.cuda.device_count()}}))
+    print(json.dumps(_kernels_line(
+        checks, launches, launches_human_3g=human,
+        launches_mesh=parallel['mesh'],
+        launches_two_processes=parallel['two_processes'],
+        launches_step=step)))
 
 
 if __name__ == '__main__':

@@ -93,11 +93,15 @@ def _parser() -> argparse.ArgumentParser:
            '(faster, less accurate on insertions)  [default: poa]')
     a('--mesh-devices', default=0, type=int,
       help='Shard every batched stage kernel data-parallel over this many '
-           'devices of --device\'s type (0 = all visible cards when there '
-           'is more than one, 1 = single-device). A mesh over several '
-           'cards, the default on a host with more than one, has not been '
-           'verified on such a host; pass 1 for the verified single-device '
-           'path  [default: 0]')
+           'devices of --device\'s type, --device\'s first (0 = all '
+           'visible cards when there is more than one, 1 = single-device). '
+           'Every card of the mesh holds a copy of the reference index, and '
+           'several processes on one host each mesh every card with the '
+           'default, so each card then holds a copy a process; give each '
+           'process its own card with --device cuda:I --mesh-devices 1. '
+           'Verified on one host with four cards, held to one card\'s '
+           'artifacts (the README gives the memory and wall time); several '
+           'hosts and more than four cards are not verified  [default: 0]')
     a('--device', default='cuda',
       help='torch device to run on (cuda, cuda:N or cpu); a CUDA device '
            'needs a card, there is no fallback to the CPU  [default: cuda]')

@@ -132,13 +132,14 @@ def mask_scratch_floats(L: int) -> int:
 
 class Kernel:
     """One CUDA entry point of the library and the number of times it was
-    launched in this process."""
+    launched in this process, in all and on each card."""
 
     def __init__(self, name: str, symbol: str, argtypes):
         self.name = name
         self.symbol = symbol
         self.argtypes = tuple(argtypes)
         self.launches = 0
+        self.by_device: dict[int, int] = {}
 
     def launch(self, *args):
         """Call the entry with ``args`` (tensors pass as their data
@@ -158,6 +159,7 @@ class Kernel:
                                f'{rc} ({msg})')
         with _count_lock:
             self.launches += 1
+            self.by_device[dev.index] = self.by_device.get(dev.index, 0) + 1
 
 
 MASK = Kernel('mask_kernel', 'fslr_mask',
@@ -177,12 +179,19 @@ ALL = (MASK, SW_PACKED, SW, BANDED, TB, WALK, PROF)
 
 
 def reset_launches():
-    for k in ALL:
-        k.launches = 0
+    with _count_lock:
+        for k in ALL:
+            k.launches = 0
+            k.by_device = {}
 
 
-def launch_counts() -> dict[str, int]:
-    return {k.name: k.launches for k in ALL}
+def launch_counts(by_device: bool = False) -> dict:
+    """{kernel: launches}, or with ``by_device`` {kernel: {card index:
+    launches}} (the cards it launched on)."""
+    with _count_lock:
+        if by_device:
+            return {k.name: dict(k.by_device) for k in ALL}
+        return {k.name: k.launches for k in ALL}
 
 
 def on_card(x: torch.Tensor) -> bool:

@@ -23,7 +23,10 @@ the score-only DP kernels the values are not integers (s is a multiple of
 keep the JAX operation order, so every rounding agrees.
 
 ``profile_banded_tb`` runs the plain version on CPU tensors and launches
-``prof_kernel`` (csrc/profile.cu) on CUDA tensors.
+``prof_kernel`` (csrc/profile.cu) on CUDA tensors.  Under an active mesh
+``profile_align_walk`` runs the DP and the walk in row shards over it
+(``parallel.dispatch.dp_call``), as the stages run their kernels; its
+rows are independent, so the results are a plain call's.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from fslr_tpu_torch.ops.banded import BW
 from fslr_tpu_torch.ops.ssw import (NEG, _cummax_exclusive, _init_state,
                                     _shift_left, _shift_right,
                                     first_gap_cost)
+from fslr_tpu_torch.parallel import dispatch
 
 SCALE = 16.0          # fixed-point scale of the packed int8 scores
 PAD_BYTE = -128       # packed score for out-of-profile columns (-8.0)
@@ -145,12 +149,19 @@ def profile_banded_tb(q, sp, g, qlens, scoring: ScoringConfig):
     return fn(q, sp, g, qlens, **_scores(scoring))
 
 
+def _profile_walk(q, sp, g, qlens, scoring: ScoringConfig):
+    """(score, packed (6, N), emits) of the profile DP and its walk."""
+    score, qend, lane, bits = profile_banded_tb(q, sp, g, qlens, scoring)
+    return (score, *tb.walk(bits, score, qend, lane))
+
+
 def profile_align_walk(q, sp, g, qlens, scoring: ScoringConfig):
     """The profile DP, then the traceback walk (ops/traceback.walk, T =
     Lq + 128) on the same device; decoded on the host.  Returns (score
     float32, qend, lane, qstart, l_fin, cigars)."""
-    score, qend, lane, bits = profile_banded_tb(q, sp, g, qlens, scoring)
-    packed, emits = tb.walk(bits, score, qend, lane)
+    score, packed, emits = dispatch.dp_call(
+        _profile_walk, (q, sp, g, qlens), statics=(scoring,),
+        out_dims=(0, 1, 0))
     _, qend, lane, qstart, l_fin, cigars = tb.finalize_extend(
         packed.cpu().numpy(), emits.cpu().numpy())
     return (score.cpu().numpy().astype(np.float32), qend, lane, qstart,

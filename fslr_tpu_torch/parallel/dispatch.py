@@ -9,16 +9,20 @@ kernels through :func:`dp_call`:
   multiple of the mesh size by repeating their last row (every kernel
   here is row-independent, so a repeated row is wasted work, never a
   different answer) and cut into contiguous row shards, one per mesh
-  entry; each device has a host thread, which runs its entries' shards
-  in turn with the device current (``torch.cuda.device``), the replicated
-  tables taken from a per-device cache that uploads each table once per
-  device; each output leaf is concatenated on the first mesh device along
-  its batch axis and cut back to the batch's rows.
+  entry; the calling thread runs the shards in mesh order, each with its
+  device current (``torch.cuda.device``), the replicated tables taken
+  from a per-device cache that uploads each table once per device; each
+  output leaf is concatenated on the first mesh device along its batch
+  axis and cut back to the batch's rows.
 
-A device gets one thread however often the mesh names it: threads of one
-device would only contend for the interpreter's lock (on the CPU, where
-the plain versions run many small operations, four threads of one
-device ran several times slower than the same shards in turn).
+One thread queues every card's shard: kernel launches and torch
+operations return before their card has run them, so the cards work side
+by side while the thread moves on.  A host thread a card would only
+contend for the interpreter's lock, which every torch operation takes
+back: on four cards such threads ran the align stage's many small
+operations five to ten times slower than one card did (four H100s,
+chip_smoke.py phase 12), and four threads of one CPU device ran several
+times slower than the same shards in turn.
 
 The row math is the same however the rows are cut, so a sharded run's
 artifacts equal a single-device run's.  Counters need no counterpart of
@@ -30,27 +34,20 @@ from __future__ import annotations
 import contextlib
 import threading
 import weakref
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
 from fslr_tpu_torch.parallel.mesh import Mesh, replicate, shard_reads
 
 _ACTIVE: Mesh | None = None
-_POOL: ThreadPoolExecutor | None = None
 _REPLICAS: dict = {}   # (id(table), mesh) -> (weakref(table), {device: copy})
 _LOCK = threading.Lock()
 
 
 def set_mesh(mesh: Mesh | None):
     """Make ``mesh`` the active mesh (None: plain calls)."""
-    global _ACTIVE, _POOL
-    if _POOL is not None:
-        _POOL.shutdown()
+    global _ACTIVE
     _ACTIVE = mesh
-    _POOL = (ThreadPoolExecutor(len(set(mesh.devices)),
-                                thread_name_prefix='dp')
-             if mesh is not None and mesh.size > 1 else None)
     with _LOCK:
         _REPLICAS.clear()
 
@@ -104,13 +101,12 @@ def _pad_rows(a: torch.Tensor, n_to: int) -> torch.Tensor:
     return torch.cat([a, a[-1:].expand(n_to - n, *a.shape[1:])])
 
 
-def _on(device: torch.device, fn, arg_lists):
-    """``fn(*args)`` for each of ``arg_lists``, in turn, with ``device``
-    current."""
+def _on(device: torch.device, fn, args):
+    """``fn(*args)`` with ``device`` current."""
     ctx = (torch.cuda.device(device) if device.type == 'cuda'
            else contextlib.nullcontext())
     with ctx:
-        return [fn(*args) for args in arg_lists]
+        return fn(*args)
 
 
 def _gather(outs: list, device: torch.device, n: int, dims):
@@ -133,21 +129,6 @@ def _gather(outs: list, device: torch.device, n: int, dims):
                     'is not a tensor')
 
 
-def _run_shards(fn, per_entry_args: list):
-    """``fn(*args)`` for each mesh entry's args, on its device's pool
-    thread with the device current; the results in mesh order."""
-    devices = _ACTIVE.devices
-    entries = {d: [i for i, e in enumerate(devices) if e == d]
-               for d in devices}
-    futures = {d: _POOL.submit(_on, d, fn, [per_entry_args[i] for i in ix])
-               for d, ix in entries.items()}
-    out = [None] * len(devices)
-    for d, ix in entries.items():
-        for i, r in zip(ix, futures[d].result()):
-            out[i] = r
-    return out
-
-
 def dp_call(fn, batch_args, repl_args=(), statics=(), out_dims=0):
     """``fn(*batch_args, *repl_args, *statics)``, data-parallel over the
     active mesh (a plain call without one).
@@ -164,7 +145,6 @@ def dp_call(fn, batch_args, repl_args=(), statics=(), out_dims=0):
     n_to = -(-n // mesh.size) * mesh.size
     shards = shard_reads(mesh, *(_pad_rows(a, n_to) for a in batch_args))
     tables = [replicas(t) for t in repl_args]
-    per_device = [[s[i] for s in shards] + [t[i] for t in tables]
-                  + list(statics) for i in range(mesh.size)]
-    return _gather(_run_shards(fn, per_device), mesh.devices[0], n,
-                   out_dims)
+    outs = [_on(d, fn, [s[i] for s in shards] + [t[i] for t in tables]
+                + list(statics)) for i, d in enumerate(mesh.devices)]
+    return _gather(outs, mesh.devices[0], n, out_dims)

@@ -6,10 +6,10 @@ of a multi-process run.  It uses gloo: what crosses processes is host
 data (a counter dict and a barrier), and NCCL refuses two ranks on one
 card, which a one-card machine running two processes needs.
 
-That module's other half, the cluster graph's edge merge over a mesh,
-has no counterpart: the edges are a host array, and one call of
-``ops/components.connected_components`` on the run's device gives the
-labels a gather of edge shards would.
+That module's other half, the connected components of the cluster
+graph's edge shards over a mesh, is ``parallel/cluster_merge.py``.
+Each process of a group drives its own card (``--device cuda:i``); what
+crosses processes stays on the host.
 """
 
 from __future__ import annotations

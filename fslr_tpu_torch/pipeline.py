@@ -340,6 +340,15 @@ def _run_pipeline_multiprocess(config: PipelineConfig, device: torch.device):
                                      process_id=0), device)
 
 
+def _synchronize(device: torch.device):
+    """Wait for the work queued on ``device`` and on every card of the
+    active mesh, whose shards a stage may leave running."""
+    mesh = dispatch.active_mesh()
+    for d in dict.fromkeys((device, *(mesh.devices if mesh else ()))):
+        if d.type == 'cuda':
+            torch.cuda.synchronize(d)
+
+
 def _run_pipeline(config: PipelineConfig, device: torch.device,
                   file_shard: tuple[int, int] | None = None):
     """One process's run; ``file_shard`` (pid, n) keeps the input files
@@ -355,8 +364,7 @@ def _run_pipeline(config: PipelineConfig, device: torch.device,
         # range (tools/profile_run.py reads it)
         with timer.stage(name), torch.profiler.record_function(name):
             yield
-            if device.type == 'cuda':
-                torch.cuda.synchronize(device)
+            _synchronize(device)
 
     panel = load_panel().subset(config.primers)
     os.makedirs(config.out, exist_ok=True)

@@ -706,9 +706,9 @@ def test_launch_runs_on_the_current_device(card):
 
 
 def test_dp_call_shards_enter_their_device(card):
-    """dp_call on a mesh of two entries on the card: each shard runs on a
-    pool thread with the card current, and the outputs equal the plain
-    call's (9 rows: padding to 10)."""
+    """dp_call on a mesh of two entries on the card: each shard runs on
+    the calling thread with the card current, and the outputs equal the
+    plain call's (9 rows: padding to 10)."""
     from fslr_tpu_torch.parallel import dispatch
     from fslr_tpu_torch.parallel.mesh import Mesh
     dev = torch.device('cuda', torch.cuda.current_device())
@@ -726,8 +726,8 @@ def test_dp_call_shards_enter_their_device(card):
     for k in want:
         assert torch.equal(got[k].cpu(), want[k].cpu()), k
     assert len(seen) == 2
-    assert all(n.startswith('dp') and i == dev.index and d == dev
-               for n, i, d in seen)
+    assert all(n == threading.current_thread().name and i == dev.index
+               and d == dev for n, i, d in seen)
 
 
 @pytest.mark.parametrize('consensus', [False, True], ids=['slice', 'consensus'])
@@ -794,3 +794,82 @@ def test_fused_step_card_equals_plain(card, tmp_path):
     chip_smoke._same_step(make_sharded_step(mesh, config, args[2].shape[0],
                                             L, n_seed)(*args), got,
                           'mesh against one device')
+
+
+# ---------------------------------------------------------------------------
+# Several cards (each test skips below two; chip_smoke.py --cards N runs
+# the whole multi-card path)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip('needs at least two CUDA cards')
+    return [torch.device('cuda', i) for i in range(torch.cuda.device_count())]
+
+
+def test_dp_call_over_every_card_equals_plain(cards):
+    """dp_call on a mesh of every card: each card launches sw_kernel on
+    its shard (11 rows: padding to a multiple of the cards), and the
+    gathered outputs, on the first card, equal the plain call's."""
+    from fslr_tpu_torch.parallel import dispatch
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    args = [torch.from_numpy(a).to(cards[0]) for a in _sw_rows(11)]
+    want = ssw.sw_locate(*args, ScoringConfig())
+    kernels.reset_launches()
+    with dispatch.use_mesh(Mesh(tuple(cards))):
+        got = dispatch.dp_call(ssw.sw_locate, args,
+                               statics=(ScoringConfig(),))
+    by_card = kernels.launch_counts(by_device=True)['sw_kernel']
+    assert set(by_card) == {d.index for d in cards}
+    for k in want:
+        assert got[k].device == cards[0]
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def test_replicas_place_one_copy_a_card(cards):
+    """dispatch.replicas: the table itself on its card, one copy on each
+    other card, made once while the table lives."""
+    from fslr_tpu_torch.parallel import dispatch
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    table = torch.arange(100_003, dtype=torch.int32, device=cards[0])
+    with dispatch.use_mesh(Mesh(tuple(cards))):
+        reps = dispatch.replicas(table)
+        again = dispatch.replicas(table)
+    assert reps[0] is table
+    assert [r.device for r in reps] == cards
+    assert all(a is b for a, b in zip(reps, again))
+    assert all(torch.equal(r.cpu(), table.cpu()) for r in reps)
+
+
+@pytest.mark.parametrize('consensus', [False, True], ids=['slice', 'consensus'])
+def test_mesh_of_every_card_equals_one_card(cards, tmp_path, consensus):
+    """run_pipeline (exact CIGARs) on a mesh of every card gives the
+    artifacts of the one-card run, BAM and index included; every card
+    launches the slice's kernels (and with consensus, prof_kernel)."""
+    from fslr_tpu_torch.parallel.mesh import Mesh
+    from fslr_tpu_torch.pipeline import run_pipeline
+    ref, fq = make_dataset(str(tmp_path), 60, 3)
+    bases = []
+    for tag, mesh in (('one', None), ('mesh', Mesh(tuple(cards)))):
+        out = str(tmp_path / tag)
+        kernels.reset_launches()
+        run_pipeline(PipelineConfig(name='D', out=out, ref=ref,
+                                    primers=('21q1', '17p6'), basecalled=fq,
+                                    skip_clustering=not consensus,
+                                    run_consensus=consensus), cards[0],
+                     mesh=mesh)
+        bases.append(os.path.join(out, 'D'))
+    by_card = kernels.launch_counts(by_device=True)
+    want = chip_smoke.SLICE_PATH + (('prof_kernel',) if consensus else ())
+    for name in want:
+        assert set(by_card[name]) == {d.index for d in cards}, name
+    suffixes = ['.mappings.bed', '.filter_counts_summary.csv',
+                '.without_primers.fq', '.bwa_dodi.bam', '.bwa_dodi.bam.bai']
+    if consensus:
+        suffixes += ['.mappings.cluster.bed', '.mappings.representative.bed',
+                     '.mappings_merged.bed', '.bwa_dodi_merged.bam']
+    for suffix in suffixes:
+        with open(bases[0] + suffix, 'rb') as a, \
+                open(bases[1] + suffix, 'rb') as b:
+            assert a.read() == b.read(), suffix
