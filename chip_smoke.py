@@ -147,11 +147,37 @@ Phases (each raises on failure; the exit code is then not 0):
     c.build_kernels(); c.run_cards([torch.device('cuda', 0)] * 4,
     tempfile.mkdtemp())"
 
+13. bench (run last): ``python -m fslr_tpu_torch.bench`` as a user runs
+    it, in a subprocess: the default mode (1,000 reads, best of 3 warm
+    runs, then 10,000; its CPU baseline, ``--cpu-baseline`` at 1,000
+    reads, measured anew with 2 torch threads in the background from the
+    end of phase 7, the cache removed first) and ``--consensus --reads
+    2000``; then
+    ``--scale 20000`` (28 groups) in this process, launch counts set to 0
+    before it: every JSON line must carry bench.py's keys and name the
+    card (nvidia-smi's name and power limit), every slice kernel must be
+    launched, every read kept and aligned, and each group outside the
+    subtelomere mask one cluster of exactly its reads.  It prints each
+    line and a JSON line with each run's seconds.
+
+``--scale N`` (one-off, not run by default; phases 2 and 13's scale run
+alone): the default pipeline at N reads in max(20, N // 700) groups
+through ``fslr_tpu_torch.bench.run_scale``, held to the planted truth as
+in phase 13, and each read's mappings.bed rows to those of a 10,000-read
+run of the same template; it prints the peak device memory and host RSS,
+the stages at whose end the peak device memory rose, the launches by
+kernel, each kernel's device time on its own launches (CUDA events around
+each wrapper call, read after the run) and the clustering path and
+sizes (query_graph's ``stats``):
+
+    python3 chip_smoke.py --scale 1000000
+
 The line before the last is a JSON object with each kernel's launches on
 the consensus run (``launches``), on human-3g's cold run
 (``launches_human_3g``), on the mesh run (``launches_mesh``), summed
-over the two processes (``launches_two_processes``) and in the fused
-step (``launches_step``), error, times and bound (with ``--cards``: the
+over the two processes (``launches_two_processes``), in the fused
+step (``launches_step``) and on phase 13's scale run
+(``launches_bench_scale_20k``), error, times and bound (with ``--cards``: the
 launches of (c), and by card those of (c), (b), (e), (f)'s processes and
 (d)); the last line is {"ok": true, "device": {...}}.
 
@@ -222,6 +248,29 @@ CROSS_SPLIT_BASES = 3_000_000       # the cross-check's reference in 2 shards
 CROSS_MASK = 'chrA\t900000\t1300000\n'   # over chrA's planted segments
 HUMAN_READS, HUMAN_GROUPS, HUMAN_SHARDS = 10_000, 20, 4
 MASK_CALL_BYTES = 64 << 20   # mask_kernel's device memory for one call
+# phase 13: the bench's modes (python -m fslr_tpu_torch.bench)
+BENCH_CONS_READS, BENCH_SCALE_READS = 2000, 20_000
+BENCH_READS_10K = 10_000    # the 10k run of a --scale N check (its rows)
+# torch threads of the CPU baseline, which runs beside phases 10, 11 and 8,
+# leaving them the host's other cores
+BASELINE_THREADS = 2
+# bench.py's keys of each mode's JSON line; the port adds 'device'
+BENCH_KEYS = {
+    'default': {'metric', 'value', 'unit', 'vs_baseline',
+                'wall_s_min_med_max', 'wall_s_runs', 'stage_s',
+                'stage_s_runs', 'align_dp_cells_per_s', 'dp_cells_per_s',
+                'stage_cells_per_s', 'reads_per_s_10k',
+                'wall_s_min_med_max_10k', 'wall_s_runs_10k', 'stage_s_10k',
+                'stage_s_runs_10k', 'align_dp_cells_per_s_10k',
+                'stage_cells_per_s_10k'},
+    'consensus': {'metric', 'value', 'unit', 'wall_s', 'wall_s_min_med_max',
+                  'stage_s', 'profile_cells', 'profile_cells_per_s',
+                  'stage_cells_per_s'},
+    'scale': {'metric', 'value', 'unit', 'wall_s', 'stage_s', 'dp_cells',
+              'stage_cells_per_s'},
+    'cluster-scale': {'metric', 'value', 'unit', 'wall_s', 'n_edges',
+                      'n_clusters', 'peak_rss_gb', 'verified_groups'},
+}
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     'mask_kernel': ('fslr_tpu_torch/csrc/tantan.cu',
@@ -1154,33 +1203,15 @@ def _read_fasta(path):
 
 def check_clusters(base, n_reads, n_groups, ref_bp):
     """Each planted group outside the subtelomere mask (read r{i} is in
-    group i % n_groups) is one cluster of exactly its reads, and that
-    cluster's consensus equals the members' sequence.  Reads of masked
-    groups stay singletons unless another shared interval links them: a
-    spurious short alignment in the primer makes the chrA segment a
-    filling, and such reads of several masked groups cluster together, as
-    in fslr_tpu.  Returns (planted clusters, all clusters)."""
-    span = group_span(ref_bp, n_groups)
-    kept = {g for g in range(n_groups)
-            if 600_000 + g * span + 1000 <= ref_bp - SUBTELOMERE}
+    group i % n_groups) is one cluster of exactly its reads
+    (planted_clusters), and that cluster's consensus equals the members'
+    sequence.  Reads of masked groups stay singletons unless another
+    shared interval links them: a spurious short alignment in the primer
+    makes the chrA segment a filling, and such reads of several masked
+    groups cluster together, as in fslr_tpu.  Returns (planted clusters,
+    all clusters)."""
+    planted, members = planted_clusters(base, n_reads, n_groups, ref_bp)
     size = n_reads // n_groups
-    members: dict = {}
-    for r in _read_bed(base + '.mappings.cluster.bed'):
-        cl = int(float(r['cluster']))
-        members.setdefault(cl, set()).add(int(r['qname'].split('.')[0][1:]))
-    by_group: dict = {}
-    for cl, reads in members.items():
-        for i in reads:
-            by_group.setdefault(i % n_groups, set()).add(cl)
-    planted = {}
-    for g in sorted(kept):
-        cls = by_group.get(g, set())
-        cl = min(cls) if cls else None
-        if len(cls) != 1 or len(members[cl]) != size or \
-                {i % n_groups for i in members[cl]} != {g}:
-            raise AssertionError(f'group {g} is not one cluster of its '
-                                 f'{size} reads')
-        planted[cl] = g
     multi = {cl for cl, reads in members.items() if len(reads) > 1}
     out = os.path.dirname(base)
     name = os.path.basename(base)
@@ -2586,6 +2617,316 @@ SW_KERNELS = ('sw_kernel', 'sw_packed_kernel')
 SAVED = SW_KERNELS + ('tb_kernel', 'prof_kernel')
 
 
+def _bench_line(mode: str, line: dict, smi: str) -> dict:
+    """A JSON line of the bench's ``mode``: exactly bench.py's keys and
+    'device', which must be the card as nvidia-smi names it (name, power
+    limit), also named in the metric, which never says TPU."""
+    card = smi.splitlines()[0]
+    want = BENCH_KEYS[mode] | {'device'}
+    if mode == 'default' and 'reads_per_s_10k' not in line:
+        want = {k for k in want if not k.endswith('_10k')}
+    if set(line) != want:
+        raise AssertionError(f'bench {mode}: keys {sorted(set(line) ^ want)} '
+                             'differ from bench.py\'s')
+    if line['device'] != card or card not in line['metric'] or \
+            'TPU' in line['metric']:
+        raise AssertionError(f'bench {mode}: {line["metric"]!r} does not '
+                             f'name the card ({card})')
+    return line
+
+
+def _bench_process(args, mode: str, smi: str) -> tuple:
+    """``python -m fslr_tpu_torch.bench ARGS`` from the repository root, as
+    a user runs it: exactly one JSON line on stdout (_bench_line).
+    Returns (line, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'fslr_tpu_torch.bench', *args],
+        capture_output=True, text=True, timeout=1200,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError(f'bench {args}: rc {proc.returncode}\n'
+                             + proc.stderr[-3000:])
+    lines = proc.stdout.splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f'bench {args}: {len(lines)} lines on stdout')
+    return _bench_line(mode, json.loads(lines[0]), smi), secs
+
+
+def _bed_columns(path, cols) -> list:
+    """The columns ``cols`` of a bed with a header, as lists of strings
+    (a bed of a 1M-read run has 4.45M rows: no dict a row)."""
+    with open(path, newline='') as fh:
+        rd = csv.reader(fh, delimiter='\t')
+        head = next(rd)
+        idx = [head.index(c) for c in cols]
+        out: list = [[] for _ in cols]
+        for row in rd:
+            for o, i in zip(out, idx):
+                o.append(row[i])
+    return out
+
+
+def _read_id(qname: str) -> int:
+    return int(qname.split('.')[0][1:])
+
+
+def rows_by_read(path, n_reads) -> np.ndarray:
+    """mappings.bed rows of each read r{i}, i < n_reads."""
+    (qn,) = _bed_columns(path, ['qname'])
+    return np.bincount(np.fromiter((_read_id(q) for q in qn), np.int64,
+                                   len(qn)), minlength=n_reads)
+
+
+def planted_clusters(base, n_reads, n_groups, ref_bp) -> tuple:
+    """A clustered run held to the planted truth: each group outside the
+    subtelomere mask (read r{i} is in group i % n_groups) is one cluster
+    of exactly its reads, and a read has one cluster.  Returns ({planted
+    cluster: its group}, {cluster: its reads})."""
+    span = group_span(ref_bp, n_groups)
+    qn, cl = _bed_columns(base + '.mappings.cluster.bed',
+                          ['qname', 'cluster'])
+    cluster_of: dict = {}
+    for q, c in zip(qn, cl):
+        i, c = _read_id(q), int(float(c))
+        if cluster_of.setdefault(i, c) != c:
+            raise AssertionError(f'read r{i} is in clusters '
+                                 f'{cluster_of[i]} and {c}')
+    members: dict = {}
+    for i, c in cluster_of.items():
+        members.setdefault(c, set()).add(i)
+    planted = {}
+    for g in range(n_groups):
+        if 600_000 + g * span + 1000 > ref_bp - SUBTELOMERE:
+            continue
+        c = cluster_of.get(g)
+        if c is None or members[c] != set(range(g, n_reads, n_groups)):
+            raise AssertionError(f'group {g} is not one cluster of its '
+                                 'reads')
+        planted[c] = g
+    return planted, members
+
+
+def scale_run(dev, root, n_reads, n_groups, smi) -> dict:
+    """``fslr_tpu_torch.bench.run_scale(n_reads, n_groups)`` on ``dev``
+    with its artifacts under ``root``, launch counts set to 0 before it
+    and read after it: its one JSON line (captured from stdout) must have
+    bench.py's keys and name the card, every slice kernel must be
+    launched, every read kept (filter counts) and aligned (mappings.bed),
+    and each group outside the subtelomere mask one cluster of exactly
+    its reads.  Returns the line with the launches, the peak device
+    memory and the stages it rose in (the run's timings.json), the
+    process's peak host RSS, the clustering path and sizes (query_graph's
+    stats, from timings.json), the cluster counts and the rows of each
+    read."""
+    import io
+    import resource
+
+    from fslr_tpu_torch import bench
+    from fslr_tpu_torch.tools.synth import REF_MB
+    os.makedirs(root, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        line = bench.run_scale(n_reads, n_groups, dev, root=root)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    out = buf.getvalue().splitlines()
+    if len(out) != 1 or json.loads(out[0]) != line:
+        raise AssertionError(f'bench --scale: {len(out)} lines on stdout')
+    _bench_line('scale', line, smi)
+    for k in SLICE_PATH:
+        if launches[k] <= 0:
+            raise AssertionError(f'{k} was not launched by the scale run')
+    base = os.path.join(root, 'out_scale', 'B')
+    with open(base + '.timings.json') as fh:
+        timings = json.load(fh)
+    with open(base + '.filter_counts_summary.csv') as fh:
+        head, vals = fh.read().splitlines()[1:3]
+    counts = dict(zip(head.split(','), vals.split(',')))
+    rows = rows_by_read(base + '.mappings.bed', n_reads)
+    if int(counts['total_kept']) != n_reads or (rows == 0).any():
+        raise AssertionError(f'{counts["total_kept"]} reads kept, '
+                             f'{int((rows > 0).sum())} aligned, of {n_reads}')
+    # tools.synth.make_dataset's contig length for n_groups
+    ref_bp = max(REF_MB, 700_000 + n_groups * 1500 + 100_000)
+    planted, members = planted_clusters(base, n_reads, n_groups, ref_bp)
+    multi = sum(len(m) > 1 for m in members.values())
+    graph = timings['query_graph']
+    return dict(line, launches=launches, peak_device_bytes=peak,
+                peak_rise_by_stage=timings['device_peak_rise_bytes'],
+                peak_host_rss_bytes=rss, clustering_path=graph['path'],
+                clustering_stats=graph, planted_clusters=len(planted),
+                clusters_of_several=multi, clusters=len(members), rows=rows)
+
+
+def start_cpu_baseline(root) -> subprocess.Popen:
+    """Phase 13's CPU baseline, ``python -m fslr_tpu_torch.bench
+    --cpu-baseline`` (1,000 reads, a warm-up and 3 runs on the host CPU),
+    started in the background with BASELINE_THREADS torch threads, its
+    output in ``root``; the cache is removed first."""
+    from fslr_tpu_torch import bench
+    if os.path.exists(bench.BASELINE_CACHE):
+        os.remove(bench.BASELINE_CACHE)
+    with open(os.path.join(root, 'cpu_baseline.out'), 'w') as out, \
+            open(os.path.join(root, 'cpu_baseline.err'), 'w') as err:
+        return subprocess.Popen(
+            [sys.executable, '-m', 'fslr_tpu_torch.bench', '--cpu-baseline'],
+            stdout=out, stderr=err, cwd=os.path.dirname(
+                os.path.abspath(__file__)),
+            env=dict(os.environ, OMP_NUM_THREADS=str(BASELINE_THREADS)))
+
+
+def cpu_baseline_done(proc, root, t_start) -> tuple:
+    """Waits for :func:`start_cpu_baseline`'s process and caches its
+    reads/s where the bench's default mode reads it.  Returns (reads/s,
+    seconds it ran, seconds waited for it here)."""
+    from fslr_tpu_torch import bench
+    t0 = time.perf_counter()
+    rc = proc.wait(timeout=900)
+    waited = time.perf_counter() - t0
+    if rc:
+        with open(os.path.join(root, 'cpu_baseline.err')) as fh:
+            raise AssertionError(f'bench --cpu-baseline: rc {rc}\n'
+                                 + fh.read()[-3000:])
+    with open(os.path.join(root, 'cpu_baseline.out')) as fh:
+        line = json.loads(fh.read().splitlines()[-1])
+    os.makedirs(os.path.dirname(bench.BASELINE_CACHE), exist_ok=True)
+    with open(bench.BASELINE_CACHE, 'w') as fh:
+        json.dump(line, fh)
+    return line['cpu_reads_per_s'], time.perf_counter() - t_start, waited
+
+
+def run_bench(dev, root, smi, baseline) -> dict:
+    """Phase 13: the bench as a user runs it, ``python -m
+    fslr_tpu_torch.bench`` in a subprocess: the default mode (1,000 reads,
+    then 10,000) against the CPU baseline that ``baseline`` = (process,
+    its root, its start) measured (:func:`start_cpu_baseline`), and
+    ``--consensus --reads 2000``; then ``--scale 20000`` in this process
+    (scale_run).  Each JSON line must have bench.py's keys and name the
+    card.  Returns the --scale run's launches."""
+    base_rps, base_s, waited = cpu_baseline_done(*baseline)
+    default, t_default = _bench_process([], 'default', smi)
+    if not default['vs_baseline'] or default['vs_baseline'] <= 0:
+        raise AssertionError(f'bench: vs_baseline {default["vs_baseline"]}')
+    cons, t_cons = _bench_process(
+        ['--consensus', '--reads', str(BENCH_CONS_READS)], 'consensus', smi)
+    if cons['profile_cells'] <= 0:
+        raise AssertionError('bench --consensus counted no profile cells')
+    groups = max(20, BENCH_SCALE_READS // 700)
+    t0 = time.perf_counter()
+    scale = scale_run(dev, os.path.join(root, 'bench_scale'),
+                      BENCH_SCALE_READS, groups, smi)
+    t_scale = time.perf_counter() - t0
+    scale.pop('rows')
+    print('bench default: ' + json.dumps(default))
+    print('bench consensus: ' + json.dumps(cons))
+    print(json.dumps(dict(
+        phase='bench', card=smi.splitlines()[0],
+        cpu_baseline_reads_per_s=base_rps, cpu_baseline_s=base_s,
+        cpu_baseline_threads=BASELINE_THREADS,
+        cpu_baseline_waited_s=waited,
+        default_s=t_default, consensus_s=t_cons, scale_s=t_scale,
+        default_reads_per_s=default['value'],
+        default_reads_per_s_10k=default['reads_per_s_10k'],
+        vs_baseline=default['vs_baseline'],
+        consensus_reads_per_s=cons['value'],
+        **{f'scale_{k}': v for k, v in scale.items()})))
+    return scale['launches']
+
+
+def rows_of_template(dev, root, n_groups) -> np.ndarray:
+    """mappings.bed rows a read of each of ``n_groups`` groups gives, from
+    a BENCH_READS_10K-read run of tools.synth.make_dataset's template
+    (--skip-clustering); the reads of a group are equal, so each must
+    give the same rows."""
+    os.makedirs(root)
+    ref, fq = make_dataset(root, BENCH_READS_10K, n_groups)
+    base = _run(root, ref, fq, 'template', dev, True)
+    rows = rows_by_read(base + '.mappings.bed', BENCH_READS_10K)
+    groups = np.arange(BENCH_READS_10K) % n_groups
+    r_g = np.zeros(n_groups, np.int64)
+    r_g[groups] = rows
+    if not np.array_equal(r_g[groups], rows):
+        raise AssertionError('reads of one group gave different rows')
+    return r_g
+
+
+@contextlib.contextmanager
+def _kernel_ms(store: dict):
+    """Adds to ``store`` the device milliseconds of each kernel's CUDA
+    wrapper over the block's calls: CUDA events recorded around each call
+    on the current stream, read once the block has ended, so that no
+    launch waits for the card."""
+    events = []
+
+    def hook(name, fn, args, kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = fn(*args, **kw)
+        ev[1].record()
+        events.append((name, ev))
+        return out
+    undo = _wrapped(list(KERNELS), hook)
+    try:
+        yield
+    finally:
+        undo()
+        torch.cuda.synchronize()
+        for name, (a, b) in events:
+            store[name] = store.get(name, 0.0) + a.elapsed_time(b)
+
+
+def main_scale(n: int, smi: str):
+    """One-off, with ``--scale N``: the default pipeline at N reads in
+    max(20, N // 700) groups (bench --scale N, scale_run), each read's
+    mappings.bed rows held to a 10,000-read run of the same template;
+    prints the line, the peak device memory and host RSS, the launches by
+    kernel, the clustering path and the clusters."""
+    dev = torch.device('cuda')
+    build_kernels()
+    groups = max(20, n // 700)
+    with tempfile.TemporaryDirectory(prefix='fslr_scale_') as root:
+        r_g = rows_of_template(dev, os.path.join(root, 'template'), groups)
+        t0 = time.perf_counter()
+        kernel_ms: dict = {}
+        with _kernel_ms(kernel_ms):
+            res = scale_run(dev, os.path.join(root, 'scale'), n, groups,
+                            smi)
+        checks_s = time.perf_counter() - t0 - res['wall_s']
+    rows = res.pop('rows')
+    want = r_g[np.arange(n) % groups]
+    if not np.array_equal(rows, want):
+        raise AssertionError(f'mappings.bed: {int(rows.sum())} rows, '
+                             f'{int(want.sum())} from the 10k run scaled')
+    card = smi.splitlines()[0]
+    print(f'scale {n}: peak device memory {res["peak_device_bytes"]} B '
+          f'({card})')
+    print(f'scale {n}: rise of the peak device memory by the stage at '
+          'whose end it showed ' + json.dumps(res['peak_rise_by_stage']))
+    print(f'scale {n}: peak host RSS {res["peak_host_rss_bytes"]} B')
+    print(f'scale {n}: query_graph ' + json.dumps(res['clustering_stats']))
+    print(f'scale {n}: launches ' + json.dumps(res['launches']))
+    print(f'scale {n}: device ms of each kernel\'s own launches '
+          + json.dumps(kernel_ms) + ', share of the wall '
+          + json.dumps({k: v / 1e3 / res['wall_s']
+                        for k, v in kernel_ms.items()}))
+    print(f'scale {n}: clustering path {res["clustering_path"]}, '
+          f'{res["planted_clusters"]} planted clusters of {groups} groups '
+          f'(the rest under the subtelomere mask), '
+          f'{res["clusters_of_several"]} clusters of several reads, '
+          f'{res["clusters"]} clusters; {int(rows.sum())} mappings.bed '
+          f'rows == the 10k run scaled; checks {checks_s:.1f} s')
+    print(json.dumps(dict(phase='scale', card=card, reads=n, groups=groups,
+                          mappings_rows=int(rows.sum()),
+                          kernel_ms=kernel_ms, **res)))
+
+
 def _wrapped(names, hook):
     """Replace the CUDA wrappers of the kernels ``names`` by ones that call
     ``hook(name, wrapper, args, kw)`` in their place; returns a function
@@ -2849,12 +3190,18 @@ def main(argv=None):
                                  'on NVIDIA cards (see the module doc).')
     ap.add_argument('--cards', type=int, nargs='?', const=CARDS_DEFAULT,
                     help='run phase 12, the multi-card path, on this many '
-                         f'cards instead of phases 3-11 on one (default '
+                         f'cards instead of phases 3-13 on one (default '
                          f'{CARDS_DEFAULT}); raises on a host with fewer')
+    ap.add_argument('--scale', type=int,
+                    help='one-off: the default pipeline at this many reads '
+                         '(bench --scale N) held to the planted truth, '
+                         'instead of phases 3-13')
     opts = ap.parse_args(argv)
     smi = preflight()
     if opts.cards is not None:
         main_cards(opts.cards, smi)
+    elif opts.scale is not None:
+        main_scale(opts.scale, smi)
     else:
         main_one(smi)
     print(json.dumps({'ok': True, 'device': {
@@ -2862,25 +3209,58 @@ def main(argv=None):
         'count': torch.cuda.device_count()}}))
 
 
+@contextlib.contextmanager
+def _phase(name: str, secs: dict):
+    """Prints the seconds the block took, and keeps them in ``secs``."""
+    t0 = time.perf_counter()
+    yield
+    secs[name] = time.perf_counter() - t0
+    print(f'phase {name}: {secs[name]:.1f} s', flush=True)
+
+
 def main_one(smi: str):
-    """Phases 2-11 on one card."""
+    """Phases 2-11 and 13 on one card."""
     dev = torch.device('cuda')
-    build_kernels()
-    checks = check_kernels(dev)
-    run_cluster_scale(dev, smi)
+    secs: dict = {}
+    with _phase('build', secs):
+        build_kernels()
+    with _phase('kernels', secs):
+        checks = check_kernels(dev)
+    with _phase('cluster-1m', secs):
+        run_cluster_scale(dev, smi)
     with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root:
-        slice_data = run_slice(dev, root)
-        check_index(dev, *slice_data)
-        launches = run_consensus(dev, root)
-        cross_check(dev, root)
-        parallel = run_parallel(dev, root, *slice_data, smi)
-        step = run_step(dev, *slice_data, smi)
-        human = run_human(dev, root)
+        with _phase('slice', secs):
+            slice_data = run_slice(dev, root)
+        with _phase('index', secs):
+            check_index(dev, *slice_data)
+        with _phase('consensus', secs):
+            launches = run_consensus(dev, root)
+        with _phase('cross-check', secs):
+            cross_check(dev, root)
+        # phase 13's CPU baseline runs on the host beside phases 10, 11, 8
+        base_root = os.path.join(root, 'cpu_baseline')
+        os.makedirs(base_root)
+        baseline = (start_cpu_baseline(base_root), base_root,
+                    time.perf_counter())
+        try:
+            with _phase('parallel', secs):
+                parallel = run_parallel(dev, root, *slice_data, smi)
+            with _phase('step', secs):
+                step = run_step(dev, *slice_data, smi)
+            with _phase('human-3g', secs):
+                human = run_human(dev, root)
+            with _phase('bench', secs):
+                bench_scale = run_bench(dev, root, smi, baseline)
+        finally:
+            if baseline[0].poll() is None:
+                baseline[0].kill()
+                baseline[0].wait()
+    print('phase seconds: ' + json.dumps(secs))
     print(json.dumps(_kernels_line(
         checks, launches, launches_human_3g=human,
         launches_mesh=parallel['mesh'],
         launches_two_processes=parallel['two_processes'],
-        launches_step=step)))
+        launches_step=step, launches_bench_scale_20k=bench_scale)))
 
 
 if __name__ == '__main__':

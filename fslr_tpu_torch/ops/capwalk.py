@@ -41,6 +41,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fslr_tpu_torch import instrument
 from fslr_tpu_torch.ops import jaccard
 
 # entries valued and replayed per device chunk (query-aligned)
@@ -322,6 +323,7 @@ def resolve_device(buckets, bounds: np.ndarray, max_itv: int, max_nc: int,
     for key_d, eo_d, base, nb in buckets:
         if nb == 0:
             continue
+        instrument.add_cells(nb * M * M, 'jaccard')
         q0 = int(np.searchsorted(bounds, base, side='left'))
         while q0 < R:
             b0 = int(bounds[q0])

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fslr_tpu_torch import instrument
+
 
 def _jaccard_impl(c1, s1, e1, z1, v1, c2, s2, e2, z2, v2, len1, len2,
                   pct: float, M: int):
@@ -63,6 +65,8 @@ def jaccard_pairs_indexed(pairs, chrom, start, end, size, lens,
     lens: from :func:`upload_interval_arrays`.  Returns (j float32, n_i
     int32) numpy arrays of length N."""
     N = len(pairs)
+    if N:               # the greedy match: an M x M interval DP a pair
+        instrument.add_cells(N * M * M, 'jaccard')
     js = np.zeros(N, np.float32)
     ns = np.zeros(N, np.int32)
     pairs = torch.as_tensor(np.asarray(pairs, np.int64).reshape(-1, 2),

@@ -317,7 +317,7 @@ def consensus_sequences_poa(clusters: list[list[str]], cfg: ConsensusConfig,
                     Lq, float(sc.match), float(sc.mismatch),
                     float(sc.gap_extend))
             score, qend, lane, qstart, l_fin, cigars = pa.profile_align_walk(
-                *(torch.from_numpy(a).to(device) for a in (q, sp, g, qlens)),
+                *(torch.from_numpy(a).to(device) for a in (q, sp, g)), qlens,
                 sc)
             for row, ji in enumerate(jidx):
                 ci, codes = jobs[ji]

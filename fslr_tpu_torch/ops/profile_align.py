@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fslr_tpu_torch import kernels
+from fslr_tpu_torch import instrument, kernels
 from fslr_tpu_torch.config import ScoringConfig
 from fslr_tpu_torch.ops import traceback as tb
 from fslr_tpu_torch.ops.banded import BW
@@ -157,11 +157,16 @@ def _profile_walk(q, sp, g, qlens, scoring: ScoringConfig):
 
 def profile_align_walk(q, sp, g, qlens, scoring: ScoringConfig):
     """The profile DP, then the traceback walk (ops/traceback.walk, T =
-    Lq + 128) on the same device; decoded on the host.  Returns (score
-    float32, qend, lane, qstart, l_fin, cigars)."""
+    Lq + 128) on q's device; decoded on the host.  ``qlens`` lies on the
+    host (a numpy array or a CPU tensor): it counts the DP cells without
+    waiting for the card.  Returns (score float32, qend, lane, qstart,
+    l_fin, cigars)."""
+    qlens = np.asarray(qlens, np.int32)
+    instrument.add_cells(int(qlens.sum(dtype=np.int64)) * int(g.shape[-1]),
+                         'profile')
     score, packed, emits = dispatch.dp_call(
-        _profile_walk, (q, sp, g, qlens), statics=(scoring,),
-        out_dims=(0, 1, 0))
+        _profile_walk, (q, sp, g, torch.from_numpy(qlens).to(q.device)),
+        statics=(scoring,), out_dims=(0, 1, 0))
     _, qend, lane, qstart, l_fin, cigars = tb.finalize_extend(
         packed.cpu().numpy(), emits.cpu().numpy())
     return (score.cpu().numpy().astype(np.float32), qend, lane, qstart,

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from fslr_tpu_torch import instrument
+
 NEG = -1e30
 
 
@@ -59,5 +61,7 @@ def select_alignments(qstart, qend, score, valid, *, ol_cost=2,
     score = score.float()
     s_sel = score if bias is None else score * bias.float()
     valid = valid & (score >= min_score)
+    B, C = qstart.shape
+    instrument.add_cells(B * C * C, 'select')
     return _select(qstart, qend, s_sel, valid, float(ol_cost),
                    float(max_overlap))

@@ -352,10 +352,27 @@ def _synchronize(device: torch.device):
 def _run_pipeline(config: PipelineConfig, device: torch.device,
                   file_shard: tuple[int, int] | None = None):
     """One process's run; ``file_shard`` (pid, n) keeps the input files
-    ``files[pid::n]``."""
+    ``files[pid::n]``.  With FSLR_PROFILE_DIR set, torch.profiler traces
+    the whole run into that folder (instrument.StageTimer)."""
     basename = os.path.join(config.out, config.name)
     print('Basename: ', basename, file=sys.stderr)
-    timer = StageTimer()
+    timer = StageTimer(device)
+    timer.start_profile(device)
+    try:
+        finished = _run_stages(config, device, file_shard, basename, timer)
+    except BaseException:
+        timer.stop_profile(config.name, device, failed=True)
+        raise
+    timer.stop_profile(config.name, device)
+    timer.report(f'{basename}.timings.json')
+    if finished:
+        print('fslr finished', file=sys.stderr)
+
+
+def _run_stages(config: PipelineConfig, device: torch.device, file_shard,
+                basename: str, timer) -> bool:
+    """The stages of _run_pipeline; False when clustering found no
+    cluster (the run ends there)."""
 
     @contextlib.contextmanager
     def stage(name):
@@ -383,10 +400,10 @@ def _run_pipeline(config: PipelineConfig, device: torch.device,
         with stage('clustering'):
             res = cluster.cluster_stage(bed, chr_lengths, config.cluster,
                                         device)
+        timer.notes['query_graph'] = res.stats
         if res.no_clusters:
             print('No clusters were found.')
-            timer.report(f'{basename}.timings.json')
-            return
+            return False
         with stage('write_cluster_beds'):
             mapping_table.write_mappings_bed(
                 res.cluster_bed, f'{basename}.mappings.cluster.bed')
@@ -406,9 +423,7 @@ def _run_pipeline(config: PipelineConfig, device: torch.device,
             with stage('consensus'):
                 consensus.run_consensus_stage(res.subgraphs, bed, ref, didx,
                                               panel, config, device)
-
-    timer.report(f'{basename}.timings.json')
-    print('fslr finished', file=sys.stderr)
+    return True
 
 
 def _align_stages(config: PipelineConfig, device: torch.device, panel,

@@ -38,6 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from fslr_tpu_torch import instrument
 from fslr_tpu_torch.config import AlignConfig, PipelineConfig
 from fslr_tpu_torch.encode import _COMP, bucket_length
 from fslr_tpu_torch.index.reference import Reference, SeedIndex
@@ -330,6 +331,8 @@ def _seed_rows(cat_d, off: np.ndarray, didx: DeviceIndex,
                 _seed_kernel, (starts, lf),
                 (cat_d, didx.counts, didx.positions, didx.table),
                 statics=(L, S, C, acfg), out_dims=2)))
+            # hits of both strands: sampled seeds x occurrence cap
+            instrument.add_cells(2 * len(part) * S * C, 'seed')
     if not pending:
         return _empty_cands()
     flat = torch.cat([p.reshape(-1) for (_, p) in pending]).cpu().numpy()
@@ -505,16 +508,18 @@ def _extend_rows(cands: Cands, cat_d, off: np.ndarray, didx: DeviceIndex,
         for o in range(0, len(cidxs), rows_per):
             ci = cidxs[o:o + rows_per]
             ri = cands.ridx[ci]
-            qlens = np.minimum(qhi[ci] - qlo[ci], SL)
+            ql = np.minimum(qhi[ci] - qlo[ci], SL)
             sf, er, srev, qlens, ws, cmin, cmax = (
                 torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
                     off[ri] + qlo[ci], off[ri] + Lq[ci] - qlo[ci],
-                    cands.srev[ci], qlens.astype(np.int32), ws_all[ci],
+                    cands.srev[ci], ql.astype(np.int32), ws_all[ci],
                     cmin_all[ci], cmax_all[ci]))
             pending.append((ci, dispatch.dp_call(
                 _score_kernel, (sf, er, srev, qlens, ws, cmin, cmax),
                 (cat_d, didx.genome), statics=(SL, acfg.scoring),
                 out_dims=1)))
+            # forward and reverse pass over the band
+            instrument.add_cells(2 * int(ql.sum()) * banded.BW, 'extend')
 
     flat = torch.cat([p.reshape(-1) for (_, p) in pending]).cpu().numpy()
     ck_all, res = [], []
@@ -774,9 +779,10 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
     qlo = ca.ext_qlo[sel_idx]
     ws = ca.ext_ws[sel_idx]
     cmin = ca.ext_cmin[sel_idx]
+    kq = ca.ext_qlen[sel_idx].astype(np.int64)
     rows = (off[ri] + qlo, off[ri] + ca.qlen[sel_idx] - qlo,
-            ca.strand_rev[sel_idx], ca.ext_qlen[sel_idx].astype(np.int32),
-            ws, cmin, ca.ext_cmax[sel_idx])
+            ca.strand_rev[sel_idx], kq.astype(np.int32), ws, cmin,
+            ca.ext_cmax[sel_idx])
     pending = []          # (selected rows, (6, n) packed, emits)
     for key in np.unique(keys).tolist():
         genome = ca.genomes[key >> 32][0]
@@ -792,6 +798,7 @@ def _emit_selected(ca: CandAln, sel_idx: np.ndarray, cat_d, off: np.ndarray,
                 _emit_kernel, (sf, er, srev, qlens, ws_g, cmin_g, cmax_g),
                 (cat_d, genome), statics=(SL, config.align.scoring),
                 out_dims=(1, 0))))
+            instrument.add_cells(int(kq[g].sum()) * banded.BW, 'extend')
     allp = torch.cat([p.reshape(-1) for _, p, _ in pending]).cpu().numpy()
     alle = torch.cat([e.reshape(-1) for _, _, e in pending]).cpu().numpy()
     qs_walk = np.zeros(n, np.int64)

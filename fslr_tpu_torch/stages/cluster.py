@@ -893,6 +893,8 @@ class ClusterResult:
     representative_bed: dict | None
     no_clusters: bool
     subgraphs: list | None = None
+    # query_graph's path ('host', or the scale path's store) and sizes
+    stats: dict = dataclasses.field(default_factory=dict)
 
 
 def cluster_stage(bed: dict, chromosome_lengths: dict, cfg: ClusterConfig,
@@ -920,12 +922,13 @@ def cluster_stage(bed: dict, chromosome_lengths: dict, cfg: ClusterConfig,
         data = filter_high_coverage(data, bed, chr_lengths,
                                     cfg.high_coverage_threshold)
 
+    stats = {'path': 'host'}
     _, edges, node_pos = query_graph(
         data, cfg.overlap, list(cfg.jaccard_cutoffs), cfg.edge_threshold,
-        cfg.qlen_diff, cfg.n_alignment_diff, cfg, device)
+        cfg.qlen_diff, cfg.n_alignment_diff, cfg, device, stats)
     subgraphs = get_subgraphs(edges, node_pos, device)
     if len(subgraphs) == len(node_pos):       # true iff no edges
-        return ClusterResult(None, None, True, subgraphs)
+        return ClusterResult(None, None, True, subgraphs, stats)
 
     # every row gets its read's cluster and size; reads in no component
     # follow as singletons in first-row order.  As after pandas' left
@@ -950,4 +953,4 @@ def cluster_stage(bed: dict, chromosome_lengths: dict, cfg: ClusterConfig,
             n_reads.astype(np.float64)
     out = chrom_to_str({**bed, 'cluster': cluster, 'n_reads': n_reads},
                        cmap)
-    return ClusterResult(out, choose_alignment(out), False, subgraphs)
+    return ClusterResult(out, choose_alignment(out), False, subgraphs, stats)

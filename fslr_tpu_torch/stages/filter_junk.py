@@ -126,7 +126,9 @@ def filter_junk_records(reads, panel: PrimerPanel, config: PipelineConfig,
             seq, lens = _upload(device, *_batch_rows(reads, part, L))
             pending.append((part, L, *dispatch.dp_call(
                 _mask_gate_packed, (seq, lens), statics=(cfg,))))
-            instrument.add_cells(2 * 100 * len(part) * L, 'hmm')
+            # ~2 x P=100 period states a base, over the batch padded to
+            # `step` rows as fslr_tpu dispatches it
+            instrument.add_cells(2 * 100 * step * L, 'hmm')
     gate = np.zeros(n, dtype=bool)
     if pending:
         flat_m = torch.cat([mp.reshape(-1) for (_, _, mp, _) in pending]) \

@@ -487,7 +487,8 @@ def test_profile_align_walk_card_equals_cpu(card):
     arrays = _prof_inputs(12, 384, seed=8)
     sc = ScoringConfig(gap_open_is_first_base=False)
     before = kernels.WALK.launches
-    got = profile_align.profile_align_walk(*_on(card, *arrays), sc)
+    got = profile_align.profile_align_walk(*_on(card, *arrays[:3]),
+                                           arrays[3], sc)
     want = profile_align.profile_align_walk(
         *_on(torch.device('cpu'), *arrays), sc)
     assert kernels.WALK.launches == before + 1
