@@ -9,7 +9,10 @@ Phases (each raises on failure; the exit code is then not 0):
 
 1. preflight: a CUDA card must be present; prints nvidia-smi's name and
    power limit;
-2. build: nvcc compiles fslr_tpu_torch/csrc/*.cu for sm_90a;
+2. build: nvcc compiles fslr_tpu_torch/csrc/*.cu for sm_90a, and g++ the
+   port's FASTX parser, fslr_tpu_torch/csrc/fastx.cpp (io/native.py); it
+   prints the parser library's path and build seconds, and fails if the
+   library lies outside fslr_tpu_torch/_build/;
 3. kernel checks: every kernel against its plain PyTorch version on the
    card, at the main path's shapes, from seeded inputs -- the DP kernels
    (banded and tb in both their thread layouts, the SW kernels and prof
@@ -33,7 +36,10 @@ Phases (each raises on failure; the exit code is then not 0):
    reference.  Then the earlier path, run_pipeline with
    exact_cigars=False, on the same data (index cache warm): its four
    kernels must be launched, the traceback kernels not, and recall must
-   hold;
+   hold.  Then (phase fastx) the stages' reader, the port's FASTX parser,
+   on slice-10k's FASTQ and on a gzip copy of it in two members: every
+   field (codes, lowercase mask, names, qualities, comments and their
+   offsets) must equal the plain Python parser's; it prints both times;
 5. index: the port's device build of that reference must equal this
    script's numpy build (``numpy_index``), unsharded and in 2 shards, and
    align_batch on the 10,000 reads must give the same alignments of 50 bp
@@ -148,17 +154,22 @@ Phases (each raises on failure; the exit code is then not 0):
     tempfile.mkdtemp())"
 
 13. bench (run last): ``python -m fslr_tpu_torch.bench`` as a user runs
-    it, in a subprocess: the default mode (1,000 reads, best of 3 warm
-    runs, then 10,000; its CPU baseline, ``--cpu-baseline`` at 1,000
-    reads, measured anew with 2 torch threads in the background from the
-    end of phase 7, the cache removed first) and ``--consensus --reads
-    2000``; then
-    ``--scale 20000`` (28 groups) in this process, launch counts set to 0
-    before it: every JSON line must carry bench.py's keys and name the
+    it, in a subprocess: ``--consensus --reads 2000``, then ``--scale
+    20000`` (28 groups) in this process, launch counts set to 0 before
+    it, then the default mode (1,000 reads, best of 3 warm runs, then
+    10,000) against its CPU baseline (``--cpu-baseline`` at 1,000 reads,
+    measured anew with 2 torch threads in the background from the end of
+    phase 7, the cache removed first; the first two runs need none, so
+    they run while it may still run): every JSON line must carry bench.py's keys and name the
     card (nvidia-smi's name and power limit), every slice kernel must be
     launched, every read kept and aligned, and each group outside the
     subtelomere mask one cluster of exactly its reads.  It prints each
-    line and a JSON line with each run's seconds.
+    line and a JSON line with each run's seconds; its ``vs_baseline``
+    is against the contended baseline (``cpu_baseline_beside_phases``
+    names the phases it ran beside), no figure of the bench's own.  When
+    the phase ends, pass or fail, the bench's baseline cache
+    (fslr_tpu_torch/_build/bench_baseline.json) holds what it held
+    before the baseline started, or is absent again.
 
 ``--scale N`` (one-off, not run by default; phases 2 and 13's scale run
 alone): the default pipeline at N reads in max(20, N // 700) groups
@@ -168,7 +179,8 @@ run of the same template; it prints the peak device memory and host RSS,
 the stages at whose end the peak device memory rose, the launches by
 kernel, each kernel's device time on its own launches (CUDA events around
 each wrapper call, read after the run) and the clustering path and
-sizes (query_graph's ``stats``):
+sizes (query_graph's ``stats``) and the FASTX parser library the run
+loaded:
 
     python3 chip_smoke.py --scale 1000000
 
@@ -225,6 +237,7 @@ import torch
 from fslr_tpu_torch import kernels
 from fslr_tpu_torch.config import (JunkFilterConfig, PipelineConfig,
                                    ScoringConfig)
+from fslr_tpu_torch.io import native
 from fslr_tpu_torch.ops import (banded, poa, profile_align, ssw, tantan,
                                 traceback)
 from fslr_tpu_torch.tools.synth import group_span, make_dataset
@@ -251,9 +264,15 @@ MASK_CALL_BYTES = 64 << 20   # mask_kernel's device memory for one call
 # phase 13: the bench's modes (python -m fslr_tpu_torch.bench)
 BENCH_CONS_READS, BENCH_SCALE_READS = 2000, 20_000
 BENCH_READS_10K = 10_000    # the 10k run of a --scale N check (its rows)
-# torch threads of the CPU baseline, which runs beside phases 10, 11 and 8,
-# leaving them the host's other cores
+# torch threads of the CPU baseline, which runs beside phases 10, 11 and 8
+# and phase 13's runs that need no baseline, leaving them the host's other
+# cores
 BASELINE_THREADS = 2
+BASELINE_BESIDE = ('parallel', 'step', 'human-3g', 'bench --consensus',
+                   'bench --scale')
+# the fields of a FastxArrays, in the order the parse check prints them
+FASTX_FIELDS = ('codes', 'lower', 'seq_off', '_names', 'name_off', '_quals',
+                'qual_off', '_comments', 'comment_off')
 # bench.py's keys of each mode's JSON line; the port adds 'device'
 BENCH_KEYS = {
     'default': {'metric', 'value', 'unit', 'vs_baseline',
@@ -334,6 +353,23 @@ def build_kernels() -> float:
     kernels.library()
     dt = time.perf_counter() - t0
     print(f'build: {dt:.2f} s ({kernels.library_path()})')
+    build_parser()
+    return dt
+
+
+def build_parser() -> float:
+    """Builds (unless built) and loads the port's FASTX parser
+    (io/native.py: g++ on csrc/fastx.cpp); its library must lie in
+    fslr_tpu_torch/_build/ beside this script."""
+    t0 = time.perf_counter()
+    native.library()
+    dt = time.perf_counter() - t0
+    path = native.loaded_path()
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             'fslr_tpu_torch', '_build')
+    if os.path.dirname(os.path.realpath(path)) != os.path.realpath(build_dir):
+        raise AssertionError(f'FASTX parser {path} lies outside {build_dir}')
+    print(f'build: FASTX parser {dt:.2f} s ({path})')
     return dt
 
 
@@ -1092,6 +1128,52 @@ def run_slice(dev, root):
             print(f'slice BAM: {json.dumps(bam)}, '
                   f'checked in {time.perf_counter() - t0:.2f} s')
     return ref, fq
+
+
+def _same_field(a, b) -> bool:
+    """Equal bytes, or arrays equal in dtype and values."""
+    if isinstance(a, bytes):
+        return a == b
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def check_fastx(root, fq_dir, smi) -> dict:
+    """The stages' reader (read_reads, the port's FASTX parser) on each
+    FASTQ of ``fq_dir`` and on a gzip copy of it in two members, against
+    the plain Python parser (records_to_arrays of _read_fastx_py): every
+    field equal.  Prints a JSON line with each parse's seconds."""
+    from fslr_tpu_torch.io.fastq import (_read_fastx_py, glob_input_files,
+                                         read_reads, records_to_arrays)
+    os.makedirs(os.path.join(root, 'fastx'))
+    runs = {}
+    for path in sorted(glob_input_files(fq_dir)):
+        with open(path, 'rb') as fh:
+            data = fh.read()
+        gz = os.path.join(root, 'fastx', os.path.basename(path) + '.gz')
+        with open(gz, 'wb') as fh:
+            fh.write(gzip.compress(data[:len(data) // 2], 1))
+            fh.write(gzip.compress(data[len(data) // 2:], 1))
+        for p in (path, gz):
+            t0 = time.perf_counter()
+            got = read_reads(p)
+            t_native = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            want = records_to_arrays(_read_fastx_py(p))
+            t_plain = time.perf_counter() - t0
+            bad = [f for f in FASTX_FIELDS
+                   if not _same_field(getattr(got, f), getattr(want, f))]
+            if got.n != want.n or bad:
+                raise AssertionError(f'{p}: the native parse differs from '
+                                     f'the plain one in {bad or "n"}')
+            runs[os.path.basename(p)] = dict(
+                reads=got.n, bases=int(got.seq_off[-1]),
+                file_bytes=os.path.getsize(p), native_s=t_native,
+                plain_s=t_plain)
+    line = dict(phase='fastx', card=smi.splitlines()[0],
+                library=native.loaded_path(), fields=list(FASTX_FIELDS),
+                equal=True, runs=runs)
+    print(json.dumps(line))
+    return line
 
 
 def numpy_index(codes, offsets, k):
@@ -2768,7 +2850,8 @@ def start_cpu_baseline(root) -> subprocess.Popen:
     """Phase 13's CPU baseline, ``python -m fslr_tpu_torch.bench
     --cpu-baseline`` (1,000 reads, a warm-up and 3 runs on the host CPU),
     started in the background with BASELINE_THREADS torch threads, its
-    output in ``root``; the cache is removed first."""
+    output in ``root``; the cache is removed first (cpu_baseline_beside
+    puts it back)."""
     from fslr_tpu_torch import bench
     if os.path.exists(bench.BASELINE_CACHE):
         os.remove(bench.BASELINE_CACHE)
@@ -2781,10 +2864,41 @@ def start_cpu_baseline(root) -> subprocess.Popen:
             env=dict(os.environ, OMP_NUM_THREADS=str(BASELINE_THREADS)))
 
 
+@contextlib.contextmanager
+def cpu_baseline_beside(root):
+    """Phase 13's CPU baseline (start_cpu_baseline) in the background for
+    the block, which gets (process, root, start) to hand to run_bench.
+    When the block ends, pass or fail, the process is stopped and the
+    bench's cache holds the bytes it held before, or is absent again: the
+    baseline ran beside other phases, and no later bench run may read it
+    as its own."""
+    from fslr_tpu_torch import bench
+    cache = bench.BASELINE_CACHE
+    old = None
+    if os.path.exists(cache):
+        with open(cache, 'rb') as fh:
+            old = fh.read()
+    proc = None
+    try:
+        proc = start_cpu_baseline(root)
+        yield proc, root, time.perf_counter()
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        if old is not None:
+            os.makedirs(os.path.dirname(cache), exist_ok=True)
+            with open(cache, 'wb') as fh:
+                fh.write(old)
+        elif os.path.exists(cache):
+            os.remove(cache)
+
+
 def cpu_baseline_done(proc, root, t_start) -> tuple:
     """Waits for :func:`start_cpu_baseline`'s process and caches its
-    reads/s where the bench's default mode reads it.  Returns (reads/s,
-    seconds it ran, seconds waited for it here)."""
+    reads/s where the bench's default mode reads it, for phase 13's bench
+    runs (cpu_baseline_beside puts the old cache back after them).
+    Returns (reads/s, seconds it ran, seconds waited for it here)."""
     from fslr_tpu_torch import bench
     t0 = time.perf_counter()
     rc = proc.wait(timeout=900)
@@ -2803,16 +2917,14 @@ def cpu_baseline_done(proc, root, t_start) -> tuple:
 
 def run_bench(dev, root, smi, baseline) -> dict:
     """Phase 13: the bench as a user runs it, ``python -m
-    fslr_tpu_torch.bench`` in a subprocess: the default mode (1,000 reads,
-    then 10,000) against the CPU baseline that ``baseline`` = (process,
-    its root, its start) measured (:func:`start_cpu_baseline`), and
-    ``--consensus --reads 2000``; then ``--scale 20000`` in this process
-    (scale_run).  Each JSON line must have bench.py's keys and name the
-    card.  Returns the --scale run's launches."""
-    base_rps, base_s, waited = cpu_baseline_done(*baseline)
-    default, t_default = _bench_process([], 'default', smi)
-    if not default['vs_baseline'] or default['vs_baseline'] <= 0:
-        raise AssertionError(f'bench: vs_baseline {default["vs_baseline"]}')
+    fslr_tpu_torch.bench`` in a subprocess: ``--consensus --reads 2000``,
+    then ``--scale 20000`` in this process (scale_run), both while the CPU
+    baseline that ``baseline`` = (process, its root, its start) measures
+    (:func:`start_cpu_baseline`) may still run; then the default mode
+    (1,000 reads, then 10,000) against that baseline.  Each JSON line must
+    have bench.py's keys and name the card.  Returns the --scale run's
+    launches."""
+    # the runs that need no CPU baseline go first, while it may still run
     cons, t_cons = _bench_process(
         ['--consensus', '--reads', str(BENCH_CONS_READS)], 'consensus', smi)
     if cons['profile_cells'] <= 0:
@@ -2823,6 +2935,10 @@ def run_bench(dev, root, smi, baseline) -> dict:
                       BENCH_SCALE_READS, groups, smi)
     t_scale = time.perf_counter() - t0
     scale.pop('rows')
+    base_rps, base_s, waited = cpu_baseline_done(*baseline)
+    default, t_default = _bench_process([], 'default', smi)
+    if not default['vs_baseline'] or default['vs_baseline'] <= 0:
+        raise AssertionError(f'bench: vs_baseline {default["vs_baseline"]}')
     print('bench default: ' + json.dumps(default))
     print('bench consensus: ' + json.dumps(cons))
     print(json.dumps(dict(
@@ -2830,6 +2946,7 @@ def run_bench(dev, root, smi, baseline) -> dict:
         cpu_baseline_reads_per_s=base_rps, cpu_baseline_s=base_s,
         cpu_baseline_threads=BASELINE_THREADS,
         cpu_baseline_waited_s=waited,
+        cpu_baseline_beside_phases=list(BASELINE_BESIDE),
         default_s=t_default, consensus_s=t_cons, scale_s=t_scale,
         default_reads_per_s=default['value'],
         default_reads_per_s_10k=default['reads_per_s_10k'],
@@ -2916,6 +3033,7 @@ def main_scale(n: int, smi: str):
           + json.dumps(kernel_ms) + ', share of the wall '
           + json.dumps({k: v / 1e3 / res['wall_s']
                         for k, v in kernel_ms.items()}))
+    print(f'scale {n}: FASTX parser {native.loaded_path()}')
     print(f'scale {n}: clustering path {res["clustering_path"]}, '
           f'{res["planted_clusters"]} planted clusters of {groups} groups '
           f'(the rest under the subtelomere mask), '
@@ -3231,6 +3349,8 @@ def main_one(smi: str):
     with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root:
         with _phase('slice', secs):
             slice_data = run_slice(dev, root)
+        with _phase('fastx', secs):
+            check_fastx(root, slice_data[1], smi)
         with _phase('index', secs):
             check_index(dev, *slice_data)
         with _phase('consensus', secs):
@@ -3240,9 +3360,7 @@ def main_one(smi: str):
         # phase 13's CPU baseline runs on the host beside phases 10, 11, 8
         base_root = os.path.join(root, 'cpu_baseline')
         os.makedirs(base_root)
-        baseline = (start_cpu_baseline(base_root), base_root,
-                    time.perf_counter())
-        try:
+        with cpu_baseline_beside(base_root) as baseline:
             with _phase('parallel', secs):
                 parallel = run_parallel(dev, root, *slice_data, smi)
             with _phase('step', secs):
@@ -3251,10 +3369,6 @@ def main_one(smi: str):
                 human = run_human(dev, root)
             with _phase('bench', secs):
                 bench_scale = run_bench(dev, root, smi, baseline)
-        finally:
-            if baseline[0].poll() is None:
-                baseline[0].kill()
-                baseline[0].wait()
     print('phase seconds: ' + json.dumps(secs))
     print(json.dumps(_kernels_line(
         checks, launches, launches_human_3g=human,

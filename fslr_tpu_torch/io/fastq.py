@@ -64,34 +64,22 @@ def read_fastx(path: str) -> Iterator[FastxRecord]:
 
 
 def read_reads(path: str):
-    """Columnar read of a FASTQ/FASTA file -> :class:`FastxArrays`.
+    """Columnar read of a FASTQ/FASTA file, plain or gzip ->
+    :class:`FastxArrays`: the stages' reader.
 
-    Default path for the stages: the native C++ parser (zlib for .gz,
-    encoded codes + lowercase mask straight into numpy arrays, no per-read
-    Python strings).  Falls back transparently to the pure-Python parser
-    when the native library can't build/load (set ``FSLR_NO_NATIVE=1`` to
-    force the fallback).  The native parser normalizes non-ACGTN symbols
-    to N; the fallback applies the same encoding, so stage decisions are
-    identical on either path.
+    The port's C++ parser (io/native.py, built from csrc/fastx.cpp at first
+    use; a failed build or load raises): encoded codes and the lowercase
+    mask straight into numpy arrays, no per-read Python strings, non-ACGTN
+    symbols as N.  ``records_to_arrays(_read_fastx_py(path))`` computes
+    the same arrays in Python; the tests hold the two equal.
     """
-    if not os.environ.get('FSLR_NO_NATIVE'):
-        try:
-            from fslr_tpu_torch.io.native import parse_fastx
-            fa = parse_fastx(path)
-        except Exception as e:
-            import sys
-            print(f'WARNING: native FASTX parser failed on {path} '
-                  f'({type(e).__name__}: {e}); using the Python parser',
-                  file=sys.stderr)
-            fa = None
-        if fa is not None:
-            return fa
-    return records_to_arrays(_read_fastx_py(path))
+    from fslr_tpu_torch.io.native import parse_fastx
+    return parse_fastx(path)
 
 
 def records_to_arrays(records: Iterable[FastxRecord]):
-    """Build a :class:`FastxArrays` from string records (the non-native
-    constructor; also used to columnarize in-memory record lists)."""
+    """Build a :class:`FastxArrays` from string records (the plain version
+    of the native parse; also columnarizes in-memory record lists)."""
     import numpy as np
 
     from fslr_tpu_torch.encode import encode, lowercase_mask

@@ -1,108 +1,137 @@
-"""ctypes bindings for the native host runtime (native/fslr_native.cpp).
+"""The port's host runtime: its FASTQ/FASTA parser (``csrc/fastx.cpp``),
+bound with ctypes.
 
-Builds the shared library on first use if g++ is available; callers fall
-back to the pure-Python reader when the library is unavailable, so the
-package works without a toolchain.
+At first use ``g++`` compiles the source into ``fslr_tpu_torch/_build/``,
+under a name that hashes the source, the flags and the host CPU
+(``-march=native`` compiles for it), writing a temporary file that
+``os.replace`` puts in place, so threads, processes and ranks that build
+at once each get a whole library.  A failed build raises with the
+compiler's output, a failed load with the loader's message: there is no
+other parser to fall back to.  Python reads the file and inflates gzip
+(several members too) with its own ``gzip`` module; the C++ gets the bytes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import gzip
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
 import numpy as np
 
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCE = os.path.join(_PKG, 'csrc', 'fastx.cpp')
+BUILD_DIR = os.path.join(_PKG, '_build')
+CXX = 'g++'
+CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-shared', '-std=c++17')
+
 _LIB = None
-_TRIED = False
 _LOAD_LOCK = threading.Lock()
+_CHUNK = 1 << 20          # plain files are read a MiB a call
 
 _DECODE = np.frombuffer(b'ACGTN', dtype=np.uint8)
 
-_NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), 'native')
 
-
-def _load():
-    # input files may be parsed on several threads (--procs): the first
-    # caller builds and binds, the others wait for its library
-    with _LOAD_LOCK:
-        return _load_once()
-
-
-def _load_once():
-    global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    so = os.path.join(_NATIVE_DIR, 'libfslr_native.so')
-    src = os.path.join(_NATIVE_DIR, 'fslr_native.cpp')
-    stale = (os.path.exists(so) and os.path.exists(src)
-             and os.path.getmtime(src) > os.path.getmtime(so))
-    if not os.path.exists(so) or stale:
-        try:
-            if stale:
-                os.remove(so)
-            subprocess.run(['make', '-C', _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except Exception as e:
-            import sys
-            if not os.path.exists(so):
-                print(f'WARNING: native parser build failed '
-                      f'({type(e).__name__}: {e}); falling back to the '
-                      f'Python FASTQ parser', file=sys.stderr)
-                return None
+def _host_cpu() -> bytes:
+    """The CPU ``-march=native`` compiles for: /proc/cpuinfo's model name
+    and flags of the first core, else the platform's processor name."""
     try:
-        lib = ctypes.CDLL(so)
+        with open('/proc/cpuinfo', 'rb') as fh:
+            first = fh.read().split(b'\n\n')[0].splitlines()
     except OSError:
-        return None
-    lib.fslr_fastx_parse.restype = ctypes.c_void_p
-    lib.fslr_fastx_parse.argtypes = [ctypes.c_char_p]
-    for fn in ('fslr_fastx_n', 'fslr_fastx_codes_len',
-               'fslr_fastx_names_len', 'fslr_fastx_quals_len',
-               'fslr_fastx_comments_len'):
-        getattr(lib, fn).restype = ctypes.c_int64
-        getattr(lib, fn).argtypes = [ctypes.c_void_p]
-    lib.fslr_fastx_copy.restype = None
-    lib.fslr_fastx_copy.argtypes = [ctypes.c_void_p] * 10
-    lib.fslr_fastx_free.argtypes = [ctypes.c_void_p]
-    # emit-stream RLE decoder (older prebuilt .so may lack the symbols)
+        return platform.processor().encode()
+    return b'\n'.join(ln for ln in first
+                      if ln.startswith((b'model name', b'flags')))
+
+
+def library_path() -> str:
+    """Path of the library built from the current source on this host
+    (not built)."""
+    h = hashlib.sha256(' '.join((CXX, *CXX_FLAGS)).encode())
+    h.update(_host_cpu())
+    with open(SOURCE, 'rb') as fh:
+        h.update(fh.read())
+    return os.path.join(BUILD_DIR, f'libfslr_fastx_{h.hexdigest()[:16]}.so')
+
+
+def build() -> str:
+    """Compile the parser unless this host has a build of the same source;
+    returns its path.  Raises with the compiler's output if it fails."""
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f'{so}.{os.getpid()}.{threading.get_ident()}.tmp'
     try:
-        lib.fslr_decode_emits.restype = ctypes.c_void_p
-        lib.fslr_decode_emits.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64]
-        lib.fslr_emits_total.restype = ctypes.c_int64
-        lib.fslr_emits_total.argtypes = [ctypes.c_void_p]
-        lib.fslr_emits_copy.restype = None
-        lib.fslr_emits_copy.argtypes = [ctypes.c_void_p] * 4
-        lib.fslr_emits_free.argtypes = [ctypes.c_void_p]
-    except AttributeError:
-        pass
-    _LIB = lib
+        res = subprocess.run([CXX, *CXX_FLAGS, '-o', tmp, SOURCE],
+                             capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f'the FASTX parser needs {CXX} to build '
+                           f'{SOURCE}: {e}') from e
+    if res.returncode:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f'{CXX} failed ({res.returncode}) on {SOURCE}:\n'
+                           f'{res.stderr}')
+    os.replace(tmp, so)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded parser (built at first call; input files may be parsed on
+    several threads, --procs: the first caller builds and binds, the others
+    wait for its library)."""
+    global _LIB
+    with _LOAD_LOCK:
+        if _LIB is None:
+            so = build()
+            try:
+                lib = ctypes.CDLL(so)
+            except OSError as e:
+                raise RuntimeError(f'cannot load the FASTX parser {so}: '
+                                   f'{e}') from e
+            lib.fslr_fastx_parse.restype = ctypes.c_void_p
+            lib.fslr_fastx_parse.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+            for fn in ('fslr_fastx_n', 'fslr_fastx_codes_len',
+                       'fslr_fastx_names_len', 'fslr_fastx_quals_len',
+                       'fslr_fastx_comments_len'):
+                getattr(lib, fn).restype = ctypes.c_int64
+                getattr(lib, fn).argtypes = [ctypes.c_void_p]
+            lib.fslr_fastx_copy.restype = None
+            lib.fslr_fastx_copy.argtypes = [ctypes.c_void_p] * 10
+            lib.fslr_fastx_free.argtypes = [ctypes.c_void_p]
+            _LIB = lib
     return _LIB
 
 
-def decode_emits(blocks: np.ndarray):
-    """RLE-decode a (n, t4) block of 2-bit-packed emit rows natively.
-    Returns (seg_off[n+1], seg_len, seg_op) int32/int32/uint8 arrays, or
-    None when the native library is unavailable."""
-    lib = _load()
-    if lib is None or not hasattr(lib, 'fslr_decode_emits'):
-        return None
-    blocks = np.ascontiguousarray(blocks, dtype=np.uint8)
-    n, t4 = blocks.shape
-    h = lib.fslr_decode_emits(
-        blocks.ctypes.data_as(ctypes.c_void_p), n, t4)
-    total = lib.fslr_emits_total(h)
-    off = np.empty(n + 1, np.int32)
-    seg_len = np.empty(total, np.int32)
-    seg_op = np.empty(max(total, 1), np.uint8)
-    lib.fslr_emits_copy(h, off.ctypes.data_as(ctypes.c_void_p),
-                        seg_len.ctypes.data_as(ctypes.c_void_p),
-                        seg_op.ctypes.data_as(ctypes.c_void_p))
-    lib.fslr_emits_free(h)
-    return off, seg_len, seg_op[:total]
+def loaded_path() -> str | None:
+    """Path of the parser this process loaded, None before its first use."""
+    return None if _LIB is None else _LIB._name
+
+
+def read_bytes(path: str) -> bytes | bytearray:
+    """The bytes the parser takes from ``path``: a gzip file's (told by
+    its magic bytes, as zlib's gzopen does) inflated, every member."""
+    with open(path, 'rb', buffering=0) as fh:
+        if fh.read(2) == b'\x1f\x8b':
+            with gzip.open(path, 'rb') as gz:
+                return gz.read()
+        size = os.fstat(fh.fileno()).st_size
+        fh.seek(0)
+        buf = bytearray(size)
+        got = 0
+        with memoryview(buf) as view:
+            while got < size:
+                n = fh.readinto(view[got:got + _CHUNK])
+                if not n:
+                    break
+                got += n
+    del buf[got:]
+    return buf
 
 
 class FastxArrays:
@@ -248,14 +277,13 @@ class FastxArrays:
                            comments.tobytes(), comment_off)
 
 
-def parse_fastx(path: str) -> FastxArrays | None:
-    """Native parse; returns None if the native library is unavailable."""
-    lib = _load()
-    if lib is None:
-        return None
-    h = lib.fslr_fastx_parse(path.encode())
+def parse_fastx(path: str) -> FastxArrays:
+    """Native parse of a FASTQ/FASTA file, plain or gzip."""
+    lib = library()
+    data = np.frombuffer(read_bytes(path), np.uint8)
+    h = lib.fslr_fastx_parse(data.ctypes.data, data.size)
     if not h:
-        raise IOError(f'failed to read {path}')
+        raise MemoryError(f'{path}: the FASTX parser ran out of memory')
     try:
         n = lib.fslr_fastx_n(h)
         ncodes = lib.fslr_fastx_codes_len(h)

@@ -47,9 +47,19 @@ def test_default_mode_against_the_cpu_baseline(tmp_path, monkeypatch,
     base = _line(capsys)
     assert set(base) == {'cpu_reads_per_s'} and base['cpu_reads_per_s'] > 0
     cache.write_text(json.dumps(base))
+    # the line's value is reads/s rounded to 0.01; vs_baseline divides the
+    # measured reads/s, which only the measurement itself holds
+    measured, measure = [], bench.measure
+
+    def recorded(*args, **kw):
+        measured.append(measure(*args, **kw))
+        return measured[-1]
+    monkeypatch.setattr(bench, 'measure', recorded)
     bench.main(['--device', 'cpu', '--skip-10k'])
     line = _line(capsys, 'default')
-    assert line['vs_baseline'] == round(line['value']
+    reads_per_s = measured[-1]['reads_per_s']
+    assert line['value'] == round(reads_per_s, 2)
+    assert line['vs_baseline'] == round(reads_per_s
                                         / base['cpu_reads_per_s'], 2)
     assert len(line['wall_s_runs']) == 3
     assert {'filter_junk', 'find_primers', 'align'} <= set(

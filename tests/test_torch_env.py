@@ -7,6 +7,7 @@ host modules keep fslr_tpu's defaults, panel and dataset bytes."""
 import ast
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -48,6 +49,32 @@ def _imported_modules(path):
 def test_port_imports_no_jax(path):
     bad = [m for m in _imported_modules(path)
            if m.split('.')[0] in BLOCKED]
+    assert not bad, bad
+
+
+# what names the JAX package's native/ tree (its prebuilt parser and its
+# source) or the switch that once chose the Python parser
+NATIVE_TREE = re.compile(r"FSLR_NO_NATIVE|['\"]native['\"]|(?<![\w.])native/"
+                         r"|libfslr_native|fslr_native\.cpp")
+
+
+def _port_sources():
+    """Every file of fslr_tpu_torch/ with code in it, and chip_smoke.py."""
+    out = [os.path.join(REPO, 'chip_smoke.py')]
+    for d, _, files in os.walk(os.path.join(REPO, 'fslr_tpu_torch')):
+        out += [os.path.join(d, f) for f in files
+                if f.endswith(('.py', '.cu', '.cuh', '.cpp'))]
+    return sorted(out)
+
+
+@pytest.mark.parametrize('path', _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_names_no_native_tree(path):
+    """The port owns its parser (csrc/fastx.cpp): no file of it reaches
+    into native/ or keeps the switch to a fallback parser."""
+    with open(path) as fh:
+        bad = [f'{i}: {ln.strip()}' for i, ln in enumerate(fh, 1)
+               if NATIVE_TREE.search(ln)]
     assert not bad, bad
 
 
