@@ -36,10 +36,20 @@ Phases (each raises on failure; the exit code is then not 0):
    reference.  Then the earlier path, run_pipeline with
    exact_cigars=False, on the same data (index cache warm): its four
    kernels must be launched, the traceback kernels not, and recall must
-   hold.  Then (phase fastx) the stages' reader, the port's FASTX parser,
-   on slice-10k's FASTQ and on a gzip copy of it in two members: every
-   field (codes, lowercase mask, names, qualities, comments and their
-   offsets) must equal the plain Python parser's; it prints both times;
+   hold.  Then the CLI again on slice-10k's reads as gzip files of two
+   members with text after them (tools.synth.gzip_folder; index cache
+   warm): the six kernels launched and every artifact, BAM included,
+   byte-equal to the cold run; it prints filter_junk's seconds beside the
+   cold run's.  Then (phase fastx) the stages' reader, the port's FASTX
+   parser, on slice-10k's FASTQ and on a gzip copy of it in two members:
+   every field (codes, lowercase mask, names, qualities, comments and
+   their offsets) must equal the plain Python parser's; it prints both
+   times; then on the FASTQ gzipped in tools.synth.gzip_forms' five forms
+   that zlib's gzread reads (text after the member, two members then
+   XYZ, the gzip's first half, its trailer cut by 6 bytes, zeros after
+   it): the inflated bytes must be the FASTQ or, for the cut member, a
+   prefix of it, every field equal to the plain parser's on that text,
+   and a flipped CRC byte must raise;
 5. index: the port's device build of that reference must equal this
    script's numpy build (``numpy_index``), unsharded and in 2 shards, and
    align_batch on the 10,000 reads must give the same alignments of 50 bp
@@ -54,13 +64,21 @@ Phases (each raises on failure; the exit code is then not 0):
    must be launched; every planted group outside the subtelomere mask
    (500 kb from a chromosome end) must be one cluster of its 20 reads,
    the masked groups' reads singletons; each such cluster's consensus
-   must equal its members' sequence, and the merged bed and BAM exist;
+   must equal its members' sequence, and the merged bed and BAM exist.
+   Then the same with ``--consensus-engine pileup``: tb_kernel and
+   walk_kernel launched inside the consensus stage, prof_kernel nowhere,
+   the same cluster checks, cluster and representative beds byte-equal to
+   the poa run's, and each of the stage's own tb and walk launches held
+   exactly to its plain version on up to 256 seeded rows of it;
 7. cross-check: 200 reads on the default 2 x 2 Mbp reference run on the
    card and on the CPU, with exact CIGARs (through the CLI) and without,
    with ``--reference-mask`` over chrA's planted segments, and 200 reads
-   in 10 groups with clustering and --consensus; every artifact (beds,
-   FASTAs, purity CSV, filter counts) must be byte-equal and the BAMs'
-   records equal; the JAX package's masked scenario (two input files,
+   in 10 groups with clustering and --consensus, with either engine
+   (the CPU halves run in two background processes from the start of
+   phase 4, beside phases 4-6, on datasets of the same bytes); every
+   artifact (beds, FASTAs, purity CSV, filter
+   counts) must be byte-equal and the BAMs' records equal; the JAX
+   package's masked scenario (two input files,
    ``--reference-mask`` and ``--regions``) must give byte-equal beds
    and filter counts, BAM records equal as a multiset in coordinate
    order, and records selected from the masked reference; align_batch
@@ -72,7 +90,8 @@ Phases (each raises on failure; the exit code is then not 0):
    its cache is written) and warm (the cache is read): the slice's six
    kernels must be launched, the planted chrX segment found in >= 99% of
    the reads, alignments of 50 bp or more only on chr1 and chrX, the
-   AS replays and spans must hold, no temporary reference may be left,
+   AS replays and spans must hold (the dataset is made in a background
+   process from the start of phase 10), no temporary reference may be left,
    and the warm run's artifacts must equal the cold run's.  It prints
    ``load_index`` split into parse, device build per shard, cache write
    or read and upload, each shard's device bytes and peak device memory,
@@ -180,12 +199,13 @@ the stages at whose end the peak device memory rose, the launches by
 kernel, each kernel's device time on its own launches (CUDA events around
 each wrapper call, read after the run) and the clustering path and
 sizes (query_graph's ``stats``) and the FASTX parser library the run
-loaded:
+loaded, after the host's total and available memory before the run:
 
     python3 chip_smoke.py --scale 1000000
 
 The line before the last is a JSON object with each kernel's launches on
-the consensus run (``launches``), on human-3g's cold run
+the consensus run (``launches``), on its pileup run
+(``launches_pileup``), on human-3g's cold run
 (``launches_human_3g``), on the mesh run (``launches_mesh``), summed
 over the two processes (``launches_two_processes``), in the fused
 step (``launches_step``) and on phase 13's scale run
@@ -230,6 +250,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -240,7 +261,8 @@ from fslr_tpu_torch.config import (JunkFilterConfig, PipelineConfig,
 from fslr_tpu_torch.io import native
 from fslr_tpu_torch.ops import (banded, poa, profile_align, ssw, tantan,
                                 traceback)
-from fslr_tpu_torch.tools.synth import group_span, make_dataset
+from fslr_tpu_torch.tools.synth import (group_span, gzip_folder, gzip_forms,
+                                        make_dataset)
 
 SLICE_READS = 10_000
 SLICE_REF_BP = 50_000_000           # per contig, 2 contigs
@@ -933,12 +955,13 @@ def check_kernels(dev, timed: bool = True) -> dict:
 
 
 def _run(root, ref, fq, tag, dev, exact, consensus=False, mask=None,
-         regions=None):
+         regions=None, engine=None):
     """One run on ``dev`` alone: through the CLI with exact CIGARs (its
     default; clustering and consensus with ``consensus``, else
     --skip-clustering; with ``mask``, --reference-mask; with ``regions``,
-    --regions; --mesh-devices 1, since the CLI's default meshes every
-    card of a host with several), through run_pipeline without."""
+    --regions; with ``engine``, --consensus-engine; --mesh-devices 1,
+    since the CLI's default meshes every card of a host with several),
+    through run_pipeline without."""
     out = os.path.join(root, f'out_{tag}')
     if exact:
         from fslr_tpu_torch.cli import main
@@ -947,7 +970,8 @@ def _run(root, ref, fq, tag, dev, exact, consensus=False, mask=None,
               '--mesh-devices', '1']
              + (['--consensus'] if consensus else ['--skip-clustering'])
              + (['--reference-mask', mask] if mask else [])
-             + (['--regions', regions] if regions else []))
+             + (['--regions', regions] if regions else [])
+             + (['--consensus-engine', engine] if engine else []))
     else:
         from fslr_tpu_torch.pipeline import run_pipeline
         run_pipeline(PipelineConfig(name='S', out=out, ref=ref,
@@ -1071,14 +1095,15 @@ def check_bam(base, ref_path, mask=None) -> dict:
 
 
 def _run_measured(root, ref, fq, tag, dev, exact, want, consensus=False,
-                  mask=None):
+                  mask=None, engine=None):
     """A run with launch counts set to 0 before it and read after it;
     each kernel of ``want`` must have been launched."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
-    base = _run(root, ref, fq, tag, dev, exact, consensus, mask)
+    base = _run(root, ref, fq, tag, dev, exact, consensus, mask,
+                engine=engine)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.launch_counts()
@@ -1127,7 +1152,29 @@ def run_slice(dev, root):
             bam = check_bam(base, ref)
             print(f'slice BAM: {json.dumps(bam)}, '
                   f'checked in {time.perf_counter() - t0:.2f} s')
+            cold, cold_stages = base, stages
+    run_slice_gzip(dev, root, ref, fq, cold, cold_stages)
     return ref, fq
+
+
+def run_slice_gzip(dev, root, ref, fq, cold, cold_stages):
+    """Slice-10k's reads as a folder of gzip files (tools.synth.gzip_folder:
+    two members, then text, which the reader must end the input at)
+    through the CLI (exact CIGARs, --skip-clustering, index cache warm):
+    the six slice kernels launched and every artifact, BAM and index
+    included, byte-equal to the cold run at ``cold``; prints filter_junk's
+    seconds (the parse and inflate run inside it) beside the cold run's."""
+    gz = gzip_folder(fq, os.path.join(root, 'reads_gz'))
+    base, wall, launches, _, stages = _run_measured(
+        root, ref, gz, 'slice_gzip', dev, True, SLICE_PATH)
+    n = _same_outputs(os.path.dirname(base), os.path.dirname(cold),
+                      'gzip input')
+    print(f'slice (gzip input, {len(os.listdir(gz))} file(s) of two '
+          f'members and text): pipeline {wall:.2f} s, {n} '
+          'artifacts, BAM included, byte-equal to the cold run; '
+          f'filter_junk {stages["filter_junk"]:.3f} s (plain input, cold '
+          f'run: {cold_stages["filter_junk"]:.3f} s); launches '
+          + json.dumps(launches))
 
 
 def _same_field(a, b) -> bool:
@@ -1141,7 +1188,8 @@ def check_fastx(root, fq_dir, smi) -> dict:
     """The stages' reader (read_reads, the port's FASTX parser) on each
     FASTQ of ``fq_dir`` and on a gzip copy of it in two members, against
     the plain Python parser (records_to_arrays of _read_fastx_py): every
-    field equal.  Prints a JSON line with each parse's seconds."""
+    field equal; then the FASTQ's gzip forms (check_gzip_forms).  Prints
+    a JSON line with each parse's seconds."""
     from fslr_tpu_torch.io.fastq import (_read_fastx_py, glob_input_files,
                                          read_reads, records_to_arrays)
     os.makedirs(os.path.join(root, 'fastx'))
@@ -1169,11 +1217,61 @@ def check_fastx(root, fq_dir, smi) -> dict:
                 reads=got.n, bases=int(got.seq_off[-1]),
                 file_bytes=os.path.getsize(p), native_s=t_native,
                 plain_s=t_plain)
+        runs.update(check_gzip_forms(root, path, data, want))
     line = dict(phase='fastx', card=smi.splitlines()[0],
                 library=native.loaded_path(), fields=list(FASTX_FIELDS),
                 equal=True, runs=runs)
     print(json.dumps(line))
     return line
+
+
+def check_gzip_forms(root, path, data, plain) -> dict:
+    """The FASTQ ``data`` (at ``path``, whose plain parse is ``plain``) in
+    tools.synth.gzip_forms' five forms, each through read_reads: the
+    bytes it inflates must be ``data`` or, where a member is cut, a prefix
+    of it, and every field must equal the plain parser's on the plain text
+    those bytes stand for; the form with a flipped CRC byte must raise.
+    Returns each form's reads, bases and seconds."""
+    from fslr_tpu_torch.io.fastq import (_read_fastx_py, read_reads,
+                                         records_to_arrays)
+    runs = {}
+    stem = os.path.join(root, 'fastx', os.path.basename(path))
+    for form, blob in gzip_forms(data).items():
+        p = f'{stem}.{form}.gz'
+        with open(p, 'wb') as fh:
+            fh.write(blob)
+        if form == 'bad_crc':
+            try:
+                read_reads(p)
+            except zlib.error as e:
+                runs[form] = dict(raised=str(e))
+                continue
+            raise AssertionError(f'{p}: a failed CRC check did not raise')
+        t0 = time.perf_counter()
+        got = read_reads(p)
+        t_native = time.perf_counter() - t0
+        inflated = native.read_bytes(p)
+        n = len(inflated)
+        if data[:n] != inflated or \
+                (n < len(data)) != (form == 'first_half'):
+            raise AssertionError(f'{p}: inflated {n} bytes, not the FASTQ '
+                                 f'or a cut of it ({len(data)} bytes)')
+        want = plain
+        if n < len(data):
+            cut = f'{stem}.{form}.plain'
+            with open(cut, 'wb') as fh:
+                fh.write(data[:n])
+            want = records_to_arrays(_read_fastx_py(cut))
+        bad = [f for f in FASTX_FIELDS
+               if not _same_field(getattr(got, f), getattr(want, f))]
+        if got.n != want.n or bad:
+            raise AssertionError(f'{p}: the native parse differs from the '
+                                 f'plain one in {bad or "n"}')
+        del inflated
+        runs[form] = dict(reads=got.n, bases=int(got.seq_off[-1]),
+                          inflated_bytes=n, file_bytes=len(blob),
+                          native_s=t_native)
+    return runs
 
 
 def numpy_index(codes, offsets, k):
@@ -1319,10 +1417,11 @@ def check_clusters(base, n_reads, n_groups, ref_bp):
     return len(planted), len(multi)
 
 
-def run_consensus(dev, root) -> dict:
+def run_consensus(dev, root) -> tuple:
     """This slice's main path: the CLI's default run (clustering) with
-    --consensus on the repo's consensus configuration.  Returns its
-    launch counts."""
+    --consensus on the repo's consensus configuration, then the same with
+    ``--consensus-engine pileup`` (run_pileup).  Returns the launch counts
+    of each run."""
     root = os.path.join(root, 'consensus')
     os.makedirs(root)
     t0 = time.perf_counter()
@@ -1340,6 +1439,100 @@ def run_consensus(dev, root) -> dict:
           f'{CONS_READS // CONS_GROUPS} reads with consensus == members')
     print('consensus stages (s): ' + json.dumps(stages))
     print('consensus launches: ' + json.dumps(launches))
+    return launches, run_pileup(dev, root, ref, fq, base)
+
+
+PILEUP_KERNELS = ('tb_kernel', 'walk_kernel')   # the pileup's own launches
+PILEUP_ROWS = 256   # rows of each such launch held to the plain version
+
+
+def run_pileup(dev, root, ref, fq, poa_base) -> dict:
+    """consensus-10k through the CLI with ``--consensus-engine pileup``:
+    the slice kernels launched, prof_kernel not; tb_kernel and
+    walk_kernel launched inside the consensus stage (ops/poa.py's
+    banded_sw_tb and walk, each member against its backbone window of
+    L + 128); each planted group one cluster whose consensus equals its
+    members (check_clusters); cluster and representative beds byte-equal
+    to the poa run's at ``poa_base``.  The consensus stage's own tb and
+    walk launches keep, on the host, their inputs and outputs at up to
+    PILEUP_ROWS seeded rows, and after the run each is held exactly to
+    its plain version on those rows (tb codes in the words that hold a
+    row's query steps, as phase 3).  Returns the run's launch counts."""
+    rng = np.random.default_rng(16)
+    inside, own, saved = [False], dict.fromkeys(KERNELS, 0), []
+
+    def hook(name, fn, args, kw):
+        out = fn(*args, **kw)
+        if inside[0]:
+            own[name] += 1
+            if name in PILEUP_KERNELS:
+                n = args[0].shape[0]
+                idx = torch.from_numpy(np.sort(rng.choice(
+                    n, min(n, PILEUP_ROWS), replace=False))).to(
+                        args[0].device)
+                if name == 'walk_kernel':   # packed (6, N), emits (N, T/4)
+                    rows = (out[0][:, idx], out[1][idx])
+                else:
+                    rows = tuple(o[idx] for o in out)
+                saved.append((name, n, tuple(a[idx].cpu() for a in args),
+                              kw, tuple(o.cpu() for o in rows)))
+        return out
+
+    stage = poa.consensus_sequences
+
+    def consensus_sequences(*a, **k):
+        inside[0] = True
+        try:
+            return stage(*a, **k)
+        finally:
+            inside[0] = False
+    undo = _wrapped(KERNELS, hook)
+    poa.consensus_sequences = consensus_sequences
+    try:
+        base, wall, launches, peak, stages = _run_measured(
+            root, ref, fq, 'consensus_pileup', dev, True, SLICE_PATH,
+            consensus=True, engine='pileup')
+    finally:
+        poa.consensus_sequences = stage
+        undo()
+    if launches['prof_kernel'] or own['prof_kernel']:
+        raise AssertionError('the pileup engine launched prof_kernel')
+    for k in PILEUP_KERNELS:
+        if own[k] <= 0:
+            raise AssertionError(f'{k} was not launched by the pileup '
+                                 'consensus stage')
+    planted, n_clusters = check_clusters(base, CONS_READS, CONS_GROUPS,
+                                         CONS_REF_BP)
+    for suffix in ('.mappings.cluster.bed', '.mappings.representative.bed'):
+        _same(base + suffix, poa_base + suffix, f'{suffix} (pileup vs poa)')
+    checked = []
+    for i, (name, n, args, kw, got) in enumerate(saved):
+        args = [a.to(dev) for a in args]
+        got = [o.to(dev) for o in got]
+        what = f'pileup {name} launch {i} ({n} rows)'
+        if name == 'tb_kernel':
+            want = traceback._tb_torch(*args, **{
+                k: v for k, v in kw.items() if k != 'cpl'})
+            err = _check_codes(what, got, want, args[2])
+        else:
+            bits, score, qend, lane = args
+            T = bits.shape[1] * 8 + banded.BW
+            err = _exact(what, got, traceback._pack_walk(
+                score, qend, lane, *traceback._walk_torch(bits, qend, lane,
+                                                          T)))
+        Lq = args[0].shape[1] * (8 if name == 'walk_kernel' else 1)
+        checked.append(dict(kernel=name, rows=n, checked_rows=len(args[0]),
+                            Lq=int(Lq), max_abs_err=err))
+    print(f'consensus (pileup engine): pipeline {wall:.2f} s, '
+          f'{CONS_READS / wall:.1f} reads/s, consensus stage '
+          f'{stages["consensus"]:.2f} s, peak device memory '
+          f'{peak / 2**30:.3f} GiB, {n_clusters} clusters, of them '
+          f'{planted} planted groups each with consensus == members; '
+          'cluster and representative beds == the poa run\'s; launches in '
+          'the consensus stage ' + json.dumps(own) + ', in the run '
+          + json.dumps(launches))
+    print('consensus (pileup engine) launches held to the plain versions '
+          'on their own rows: ' + json.dumps(checked))
     return launches
 
 
@@ -1369,31 +1562,25 @@ def _bam_parts(path):
     return head, recs
 
 
-def cross_check_masked_regions(dev, root):
+def _masked_regions_same(base, cpu_base, ref, mask):
     """The masked-reference scenario of the JAX package's pipeline tests
     (tools.synth.make_masked_dataset: two input files, --reference-mask,
-    --regions) on the card and on the CPU.  With regions, each read's
-    alignment to the masked copy (one base before the reference's) is
-    selected besides its reference one.  mappings.bed and the filter
-    counts byte-equal; the BAM's header equal and its records equal as a
-    multiset in the same coordinate order (the two files' filtered copies
-    carry random names, which order records that tie on coordinates);
-    the masked records' AS replayed on the masked layout."""
-    from fslr_tpu_torch.tools.synth import make_masked_dataset
-    root = os.path.join(root, 'masked_regions')
-    os.makedirs(root)
-    ref, fq, mask, regions = make_masked_dataset(root)
-    bases = [_run(root, ref, fq, tag, d, True, mask=mask, regions=regions)
-             for tag, d in (('card', dev), ('cpu', torch.device('cpu')))]
+    --regions), its card run at ``base`` against its CPU run at
+    ``cpu_base``.  With regions, each read's alignment to the masked copy
+    (one base before the reference's) is selected besides its reference
+    one.  mappings.bed and the filter counts byte-equal; the BAM's header
+    equal and its records equal as a multiset in the same coordinate
+    order (the two files' filtered copies carry random names, which order
+    records that tie on coordinates); the masked records' AS replayed on
+    the masked layout."""
     for suffix in ('.mappings.bed', '.filter_counts_summary.csv'):
-        _same(bases[0] + suffix, bases[1] + suffix,
-              f'{suffix} (masked, regions)')
+        _same(base + suffix, cpu_base + suffix, f'{suffix} (masked, regions)')
     (head, recs), (head_c, recs_c) = (_bam_parts(b + '.bwa_dodi.bam')
-                                      for b in bases)
+                                      for b in (base, cpu_base))
     if head != head_c or sorted(recs) != sorted(recs_c) or \
             [r[4:12] for r in recs] != [r[4:12] for r in recs_c]:
         raise AssertionError('BAM (masked, regions): the two runs differ')
-    bam = check_bam(bases[0], ref, mask)
+    bam = check_bam(base, ref, mask)
     if bam['of_them_masked'] == 0:
         raise AssertionError('masked, regions: no record from the masked '
                              'reference')
@@ -1402,73 +1589,155 @@ def cross_check_masked_regions(dev, root):
           f'(as a multiset, in coordinate order); BAM {json.dumps(bam)}')
 
 
-def cross_check(dev, root):
-    """200 reads on the card and on the CPU, with and without exact
-    CIGARs, with --reference-mask, and with clustering and consensus:
-    artifacts byte-equal; the masked scenario with regions
-    (cross_check_masked_regions); a 2-shard align_batch."""
-    root = os.path.join(root, 'cross')
-    os.makedirs(root)
-    ref, fq = make_dataset(root, CROSS_READS)
-    for exact in (True, False):
-        base_g = _run(root, ref, fq, f'card_{exact}', dev, exact)
-        base_c = _run(root, ref, fq, f'cpu_{exact}', torch.device('cpu'),
-                      exact)
-        for suffix in ('.mappings.bed', '.filter_counts_summary.csv',
-                       '.bwa_dodi.bam'):
-            _same(base_g + suffix, base_c + suffix,
-                  f'{suffix} (exact_cigars={exact})')
-        n_rows = len(_read_bed(base_g + '.mappings.bed'))
-        print(f'cross-check (exact_cigars={exact}): {CROSS_READS} reads, '
-              f'card == CPU for mappings.bed ({n_rows} rows), '
-              f'filter_counts_summary.csv and BAM records')
-    mask = os.path.join(root, 'mask.bed')
-    with open(mask, 'w') as fh:
-        fh.write(CROSS_MASK)
-    bases = [_run(root, ref, fq, f'{tag}_masked', d, True, mask=mask)
-             for tag, d in (('card', dev), ('cpu', torch.device('cpu')))]
-    for suffix in ('.mappings.bed', '.filter_counts_summary.csv',
-                   '.bwa_dodi.bam'):
-        _same(bases[0] + suffix, bases[1] + suffix, f'{suffix} (masked)')
-    print(f'cross-check (--reference-mask, {CROSS_MASK.strip()!r}): '
-          f'{CROSS_READS} reads, card == CPU for mappings.bed '
-          f'({len(_read_bed(bases[0] + ".mappings.bed"))} rows), '
-          'filter_counts_summary.csv and BAM records')
-    cross_check_masked_regions(dev, root)
+CROSS_CPU_THREADS = 3   # torch threads of each of phase 7's CPU processes
+CROSS_ENGINES = ('poa', 'pileup')
+
+
+def _cross_runs(root, d) -> dict:
+    """Phase 7's runs on device ``d`` (the card, or the CPU in a process of
+    cross_cpu_beside), each dataset made under ``root``: 200 reads with
+    exact CIGARs and without, with --reference-mask over chrA's planted
+    segments, the masked scenario with --regions, and the 2-shard
+    align_batch (its rows as JSON).  Returns the run bases and rows."""
     from fslr_tpu_torch.index.reference import (build_seed_index,
                                                 load_reference)
     from fslr_tpu_torch.io.fastq import read_reads
+    from fslr_tpu_torch.tools.synth import make_masked_dataset
+    ref, fq = make_dataset(root, CROSS_READS)
+    out = {}
+    for key, exact in (('exact', True), ('approx', False)):
+        out[key] = _run(root, ref, fq, f'{d.type}_{exact}', d, exact)
+    out['mask'] = os.path.join(root, 'mask.bed')
+    with open(out['mask'], 'w') as fh:
+        fh.write(CROSS_MASK)
+    out['masked'] = _run(root, ref, fq, f'{d.type}_masked', d, True,
+                         mask=out['mask'])
+    mroot = os.path.join(root, 'masked_regions')
+    os.makedirs(mroot)
+    mref, mfq, mmask, regions = make_masked_dataset(mroot)
+    out['regions'] = (_run(mroot, mref, mfq, d.type, d, True, mask=mmask,
+                           regions=regions), mref, mmask)
     href = load_reference(ref)
     fa = read_reads(os.path.join(fq, 'b0.fastq'))
-    rows = [_align_rows(href, build_seed_index(
+    out['rows'] = [json.dumps(_align_rows(href, build_seed_index(
         href, PipelineConfig().align.seed_k, d, cap), d,
-        fa.codes_slice(0, fa.n)) for d, cap in (
-            (dev, CROSS_SPLIT_BASES), (torch.device('cpu'), CROSS_SPLIT_BASES),
-            (dev, 2 * CROSS_SPLIT_BASES))]
-    if rows[0] != rows[1]:
-        raise AssertionError('2-shard align_batch: card and CPU differ')
-    if rows[0] != rows[2]:
-        raise AssertionError('2-shard align_batch differs from unsharded')
-    print(f'cross-check (2 shards): align_batch of {fa.n} reads, card == '
-          f'CPU == unsharded ({len(rows[0])} alignments, every column and '
-          'CIGAR)')
-    root = os.path.join(root, 'consensus')
-    os.makedirs(root)
+        fa.codes_slice(0, fa.n)))
+        for cap in (CROSS_SPLIT_BASES, 2 * CROSS_SPLIT_BASES)]
+    out['n_align'] = fa.n
+    return out
+
+
+def _consensus_runs(root, d) -> dict:
+    """Phase 7's 200 reads in 10 groups with clustering and --consensus
+    on ``d``, with each engine; returns the run bases by engine."""
     ref, fq = make_dataset(root, CROSS_READS, CROSS_GROUPS)
-    bases = [_run(root, ref, fq, tag, d, True, consensus=True)
-             for tag, d in (('card', dev), ('cpu', torch.device('cpu')))]
-    files = []
-    for dirpath, _, names in os.walk(os.path.dirname(bases[0])):
-        rel = os.path.relpath(dirpath, os.path.dirname(bases[0]))
-        files += [os.path.join(rel, n) for n in names
-                  if not n.endswith(('.timings.json', '.no_primers.fq'))]
-    for rel in sorted(files):
-        a = os.path.join(os.path.dirname(bases[0]), rel)
-        _same(a, os.path.join(os.path.dirname(bases[1]), rel), rel)
-    _, n = check_clusters(bases[0], CROSS_READS, CROSS_GROUPS, CONS_REF_BP)
-    print(f'cross-check (consensus): {CROSS_READS} reads in {n} clusters, '
-          f'card == CPU for {len(files)} artifacts (beds, FASTAs, purity '
-          f'CSV, BAM records)')
+    return {e: _run(root, ref, fq, f'{d.type}_{e}', d, True, consensus=True,
+                    engine=e) for e in CROSS_ENGINES}
+
+
+def cross_cpu(root, part):
+    """Phase 7's CPU halves in a process of their own (cross_cpu_beside):
+    ``part`` 'runs' (_cross_runs) or 'consensus' (_consensus_runs) on the
+    CPU under ``root``; writes what cross_check reads to
+    ``root/runs.json``."""
+    fn = _cross_runs if part == 'runs' else _consensus_runs
+    with open(os.path.join(root, 'runs.json'), 'w') as fh:
+        json.dump(fn(root, torch.device('cpu')), fh)
+
+
+@contextlib.contextmanager
+def cross_cpu_beside(root):
+    """Phase 7's CPU halves in the background for the block (from the
+    start of phase 4): cross_cpu's two parts, each in a process of
+    CROSS_CPU_THREADS torch threads with no card visible and a directory
+    of its own under ``root``.  Yields ({part: (process, its root)}, the
+    start); the processes are stopped when the block ends."""
+    procs = {}
+    try:
+        for part in ('runs', 'consensus'):
+            proot = os.path.join(root, f'cross_cpu_{part}')
+            os.makedirs(proot)
+            with open(os.path.join(proot, 'err'), 'w') as err:
+                procs[part] = (subprocess.Popen(
+                    [sys.executable, '-c', 'import chip_smoke; chip_smoke.'
+                     f'cross_cpu({proot!r}, {part!r})'],
+                    stdout=subprocess.DEVNULL, stderr=err,
+                    cwd=os.path.dirname(os.path.abspath(__file__)),
+                    env=dict(os.environ,
+                             OMP_NUM_THREADS=str(CROSS_CPU_THREADS),
+                             CUDA_VISIBLE_DEVICES='')), proot)
+        yield procs, time.perf_counter()
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _cross_cpu_done(procs) -> tuple:
+    """Waits for cross_cpu_beside's processes; returns ({part: what it
+    wrote}, seconds waited)."""
+    t0 = time.perf_counter()
+    out = {}
+    for part, (proc, proot) in procs.items():
+        rc = proc.wait(timeout=900)
+        if rc:
+            with open(os.path.join(proot, 'err')) as fh:
+                raise AssertionError(f'phase 7 on the CPU ({part}): rc {rc}'
+                                     '\n' + fh.read()[-3000:])
+        with open(os.path.join(proot, 'runs.json')) as fh:
+            out[part] = json.load(fh)
+    return out, time.perf_counter() - t0
+
+
+def cross_check(dev, root, cpu):
+    """200 reads on the card and on the CPU, with and without exact
+    CIGARs, with --reference-mask, and with clustering and consensus
+    (either engine): artifacts byte-equal; the masked scenario with
+    regions (_masked_regions_same); a 2-shard align_batch.  The CPU halves
+    ran in the background (``cpu`` from cross_cpu_beside) on datasets of
+    the same bytes."""
+    procs, t_start = cpu
+    root = os.path.join(root, 'cross')
+    os.makedirs(root)
+    card = _cross_runs(root, dev)
+    croot = os.path.join(root, 'consensus')
+    os.makedirs(croot)
+    card_cons = _consensus_runs(croot, dev)
+    t_card = time.perf_counter()
+    done, waited = _cross_cpu_done(procs)
+    cpu, cpu_cons = done['runs'], done['consensus']
+    for key, what in (('exact', 'exact_cigars=True'),
+                      ('approx', 'exact_cigars=False'),
+                      ('masked', f'--reference-mask, {CROSS_MASK.strip()!r}')):
+        base_g = card[key]
+        for suffix in ('.mappings.bed', '.filter_counts_summary.csv',
+                       '.bwa_dodi.bam'):
+            _same(base_g + suffix, cpu[key] + suffix, f'{suffix} ({what})')
+        n_rows = len(_read_bed(base_g + '.mappings.bed'))
+        print(f'cross-check ({what}): {CROSS_READS} reads, card == CPU for '
+              f'mappings.bed ({n_rows} rows), filter_counts_summary.csv and '
+              'BAM records')
+    _masked_regions_same(card['regions'][0], cpu['regions'][0],
+                         *card['regions'][1:])
+    if card['rows'][0] != cpu['rows'][0]:
+        raise AssertionError('2-shard align_batch: card and CPU differ')
+    if card['rows'][0] != card['rows'][1]:
+        raise AssertionError('2-shard align_batch differs from unsharded')
+    print(f'cross-check (2 shards): align_batch of {card["n_align"]} reads, '
+          f'card == CPU == unsharded '
+          f'({len(json.loads(card["rows"][0]))} alignments, every column '
+          'and CIGAR)')
+    for engine, base in card_cons.items():
+        n_files = _same_outputs(os.path.dirname(base),
+                                os.path.dirname(cpu_cons[engine]),
+                                f'cross-check (consensus, {engine})')
+        _, n = check_clusters(base, CROSS_READS, CROSS_GROUPS, CONS_REF_BP)
+        print(f'cross-check (consensus, {engine} engine): {CROSS_READS} '
+              f'reads in {n} clusters, card == CPU for {n_files} artifacts '
+              '(beds, FASTAs, purity CSV, BAMs)')
+    print(f'cross-check: the CPU halves started {t_card - t_start:.1f} s '
+          f'before the card halves ended; waited {waited:.1f} s for them')
 
 
 PAR_FILES = 4            # consensus-10k's reads as four input files
@@ -2136,7 +2405,40 @@ def cluster_paths(dev, n_reads: int, paths=('in-HBM', 'sharded', 'spill')):
     return out
 
 
-def run_human(dev, root) -> dict:
+def make_human(root):
+    """The human-3g dataset under ``root``, in a process of its own
+    (human_dataset_beside); writes its paths and seconds to
+    ``root/dataset.json``."""
+    from fslr_tpu_torch.tools.synth import make_grch38_layout_dataset
+    t0 = time.perf_counter()
+    paths = make_grch38_layout_dataset(root, HUMAN_READS, HUMAN_GROUPS)
+    with open(os.path.join(root, 'dataset.json'), 'w') as fh:
+        json.dump(dict(paths=paths, seconds=time.perf_counter() - t0), fh)
+
+
+@contextlib.contextmanager
+def human_dataset_beside(root):
+    """make_human in the background for the block (from the start of
+    phase 10, with no card visible), under ``root/human``.  Yields
+    (process, its root); the process is stopped when the block ends."""
+    root = os.path.join(root, 'human')
+    os.makedirs(root)
+    with open(os.path.join(root, 'dataset.err'), 'w') as err:
+        proc = subprocess.Popen(
+            [sys.executable, '-c',
+             f'import chip_smoke; chip_smoke.make_human({root!r})'],
+            stdout=subprocess.DEVNULL, stderr=err,
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=''))
+    try:
+        yield proc, root
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def run_human(dev, dataset) -> dict:
     """human-3g: 10,000 reads against a GRCh38-size reference (24
     chromosomes at GRCh38's lengths, 3.09 Gbp, 4 index shards) with
     --reference-mask, exact CIGARs and --skip-clustering, through the
@@ -2145,18 +2447,24 @@ def run_human(dev, root) -> dict:
     kernels, find the planted chrX segment in >= 99% of the reads, map
     only to chr1 and chrX and leave no temporary reference; the warm run's
     artifacts must equal the cold run's, the cold BAM's AS tags their
-    replays.  Returns the cold run's launch counts."""
-    from fslr_tpu_torch.tools.synth import (GRCH38,
-                                            make_grch38_layout_dataset)
-    root = os.path.join(root, 'human')
-    os.makedirs(root)
+    replays.  The dataset comes from ``dataset`` (human_dataset_beside).
+    Returns the cold run's launch counts."""
+    from fslr_tpu_torch.tools.synth import GRCH38
+    proc, root = dataset
     for cmd in (['df', '-h', root], ['free', '-g']):
         print('human: ' + subprocess.run(cmd, capture_output=True,
                                          text=True).stdout.strip())
     t0 = time.perf_counter()
-    ref, fq, mask = make_grch38_layout_dataset(root, HUMAN_READS,
-                                               HUMAN_GROUPS)
-    print(f'human: dataset {time.perf_counter() - t0:.2f} s '
+    rc = proc.wait(timeout=900)
+    if rc:
+        with open(os.path.join(root, 'dataset.err')) as fh:
+            raise AssertionError(f'human dataset: rc {rc}\n'
+                                 + fh.read()[-3000:])
+    with open(os.path.join(root, 'dataset.json')) as fh:
+        made = json.load(fh)
+    ref, fq, mask = made['paths']
+    print(f'human: dataset {made["seconds"]:.2f} s in the background, '
+          f'waited {time.perf_counter() - t0:.2f} s '
           f'({sum(n for _, n in GRCH38)} bp in {len(GRCH38)} contigs)')
     span = group_span(dict(GRCH38)['chrX'], HUMAN_GROUPS)
     k = PipelineConfig().align.seed_k
@@ -2999,6 +3307,14 @@ def _kernel_ms(store: dict):
             store[name] = store.get(name, 0.0) + a.elapsed_time(b)
 
 
+def host_memory() -> dict:
+    """The host's total and available memory in bytes (/proc/meminfo)."""
+    with open('/proc/meminfo') as fh:
+        info = dict(line.split(':', 1) for line in fh)
+    return {k: int(info[k].split()[0]) * 1024
+            for k in ('MemTotal', 'MemAvailable')}
+
+
 def main_scale(n: int, smi: str):
     """One-off, with ``--scale N``: the default pipeline at N reads in
     max(20, N // 700) groups (bench --scale N, scale_run), each read's
@@ -3006,6 +3322,8 @@ def main_scale(n: int, smi: str):
     prints the line, the peak device memory and host RSS, the launches by
     kernel, the clustering path and the clusters."""
     dev = torch.device('cuda')
+    print(f'scale {n}: host memory before the run '
+          + json.dumps(host_memory()), flush=True)
     build_kernels()
     groups = max(20, n // 700)
     with tempfile.TemporaryDirectory(prefix='fslr_scale_') as root:
@@ -3346,7 +3664,9 @@ def main_one(smi: str):
         checks = check_kernels(dev)
     with _phase('cluster-1m', secs):
         run_cluster_scale(dev, smi)
-    with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root:
+    with tempfile.TemporaryDirectory(prefix='fslr_smoke_') as root, \
+            cross_cpu_beside(root) as cross_cpu:
+        # phase 7's CPU halves go on in the background from here
         with _phase('slice', secs):
             slice_data = run_slice(dev, root)
         with _phase('fastx', secs):
@@ -3354,24 +3674,26 @@ def main_one(smi: str):
         with _phase('index', secs):
             check_index(dev, *slice_data)
         with _phase('consensus', secs):
-            launches = run_consensus(dev, root)
+            launches, pileup = run_consensus(dev, root)
         with _phase('cross-check', secs):
-            cross_check(dev, root)
-        # phase 13's CPU baseline runs on the host beside phases 10, 11, 8
+            cross_check(dev, root, cross_cpu)
+        # phase 13's CPU baseline runs on the host beside phases 10, 11, 8,
+        # and human-3g's dataset is made beside phases 10 and 11
         base_root = os.path.join(root, 'cpu_baseline')
         os.makedirs(base_root)
-        with cpu_baseline_beside(base_root) as baseline:
+        with cpu_baseline_beside(base_root) as baseline, \
+                human_dataset_beside(root) as human_data:
             with _phase('parallel', secs):
                 parallel = run_parallel(dev, root, *slice_data, smi)
             with _phase('step', secs):
                 step = run_step(dev, *slice_data, smi)
             with _phase('human-3g', secs):
-                human = run_human(dev, root)
+                human = run_human(dev, human_data)
             with _phase('bench', secs):
                 bench_scale = run_bench(dev, root, smi, baseline)
     print('phase seconds: ' + json.dumps(secs))
     print(json.dumps(_kernels_line(
-        checks, launches, launches_human_3g=human,
+        checks, launches, launches_pileup=pileup, launches_human_3g=human,
         launches_mesh=parallel['mesh'],
         launches_two_processes=parallel['two_processes'],
         launches_step=step, launches_bench_scale_20k=bench_scale)))

@@ -7,19 +7,24 @@ under a name that hashes the source, the flags and the host CPU
 ``os.replace`` puts in place, so threads, processes and ranks that build
 at once each get a whole library.  A failed build raises with the
 compiler's output, a failed load with the loader's message: there is no
-other parser to fall back to.  Python reads the file and inflates gzip
-(several members too) with its own ``gzip`` module; the C++ gets the bytes.
+other parser to fall back to.  Python reads the file and inflates gzip;
+the C++ gets the bytes.  A gzip file is read as zlib's ``gzread`` reads it
+in ``fslr_tpu``'s parser (``gz_look``): member after member while the
+bytes after one begin with the gzip magic, so text or zero padding after
+the last member ends the input quietly, and a member cut short yields
+what it inflated so far; corrupt deflate data or a failed CRC or length
+check raises.
 """
 
 from __future__ import annotations
 
 import ctypes
-import gzip
 import hashlib
 import os
 import platform
 import subprocess
 import threading
+import zlib
 
 import numpy as np
 
@@ -32,6 +37,8 @@ CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-shared', '-std=c++17')
 _LIB = None
 _LOAD_LOCK = threading.Lock()
 _CHUNK = 1 << 20          # plain files are read a MiB a call
+_GZ_CHUNK = 1 << 22       # gzip files 4 MiB a call, as gzbuffer(f, 1 << 22)
+_GZ_MAGIC = b'\x1f\x8b'
 
 _DECODE = np.frombuffer(b'ACGTN', dtype=np.uint8)
 
@@ -113,13 +120,44 @@ def loaded_path() -> str | None:
     return None if _LIB is None else _LIB._name
 
 
-def read_bytes(path: str) -> bytes | bytearray:
+def _inflate(fh, path: str) -> bytearray:
+    """Every gzip member of the open file ``fh`` (read from its start),
+    inflated into one buffer as zlib's gzread does: after a member ends
+    another is read only if the next bytes begin with the gzip magic
+    (text or zeros after the last member end the input); the input ending
+    inside a member keeps what was inflated; ``zlib.error`` (bad deflate
+    data, CRC or length) raises, naming ``path``."""
+    out = bytearray()
+    member = zlib.decompressobj(wbits=31)      # one gzip member
+    buf = fh.read(_GZ_CHUNK)
+    while buf:
+        try:
+            out += member.decompress(buf)
+        except zlib.error as e:
+            raise zlib.error(f'{path}: {e}') from e
+        if not member.eof:
+            buf = fh.read(_GZ_CHUNK)
+            continue
+        buf = member.unused_data
+        while len(buf) < 2:
+            more = fh.read(_GZ_CHUNK)
+            if not more:
+                break
+            buf += more
+        if buf[:2] != _GZ_MAGIC:
+            break
+        member = zlib.decompressobj(wbits=31)
+    return out
+
+
+def read_bytes(path: str) -> bytearray:
     """The bytes the parser takes from ``path``: a gzip file's (told by
-    its magic bytes, as zlib's gzopen does) inflated, every member."""
+    its magic bytes, as zlib's gzopen does) inflated by :func:`_inflate`,
+    a plain file's as they are."""
     with open(path, 'rb', buffering=0) as fh:
-        if fh.read(2) == b'\x1f\x8b':
-            with gzip.open(path, 'rb') as gz:
-                return gz.read()
+        if fh.read(2) == _GZ_MAGIC:
+            fh.seek(0)
+            return _inflate(fh, path)
         size = os.fstat(fh.fileno()).st_size
         fh.seek(0)
         buf = bytearray(size)

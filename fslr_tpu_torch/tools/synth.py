@@ -22,6 +22,12 @@ BED inside it, and two FASTQ files of three reads that lie in both.
 without a pipeline run (the data of ``bench.run_cluster_scale``): one
 interior interval a read, in breakpoint groups.
 
+``gzip_forms`` gives a FASTQ's bytes gzipped in the forms zlib's
+``gzread`` reads where Python's ``gzip`` module refuses or stops (text
+or zeros after the last member, a cut member or trailer) and with a
+corrupt CRC; ``gzip_folder`` writes a folder's input files as gzips of
+two members with text after them.
+
 ``step_inputs`` gives the ten arguments of the fused device step
 (``parallel/step.py``) for a reference and a list of reads.
 
@@ -30,6 +36,7 @@ interior interval a read, in breakpoint groups.
 
 from __future__ import annotations
 
+import gzip
 import os
 import sys
 
@@ -208,6 +215,52 @@ def make_cluster_scale_data(n_reads: int, group: int = 700, seed: int = 7):
             for r, (s, e) in enumerate(zip(start, end))]
     data.sort(key=lambda it: it.start)
     return data
+
+
+def gzip_members(data: bytes, k: int = 2, level: int = 1) -> bytes:
+    """``data`` as ``k`` gzip members, one after another, split at
+    lines."""
+    lines = data.splitlines(keepends=True)
+    step = max(1, -(-len(lines) // k))
+    return b''.join(gzip.compress(b''.join(lines[i:i + step]), level,
+                                  mtime=0)
+                    for i in range(0, len(lines), step))
+
+
+GZIP_TAIL = b'not gzip at all\n'      # text after the last member
+
+
+def gzip_forms(data: bytes, level: int = 1) -> dict[str, bytes]:
+    """``data`` gzipped in five forms that fslr_tpu's reader (zlib's
+    gzread) reads: text after the member, two members then ``XYZ``, the
+    first half of the gzip (a cut member), its trailer cut by 6 bytes and
+    1,024 zeros after it; and ``bad_crc``, the gzip with its CRC's first
+    byte flipped, which it refuses.  The inflated bytes are ``data`` or,
+    where a member is cut, a prefix of it."""
+    gz = gzip.compress(data, level, mtime=0)
+    bad = bytearray(gz)
+    bad[-8] ^= 0xff                      # the trailer: CRC32, then ISIZE
+    return {'text_after_last_member': gz + GZIP_TAIL,
+            'two_members_then_xyz': gzip_members(data, 2, level) + b'XYZ',
+            'first_half': gz[:len(gz) // 2],
+            'trailer_cut_by_6': gz[:-6],
+            'trailing_zeros': gz + bytes(1024),
+            'bad_crc': bytes(bad)}
+
+
+def gzip_folder(src: str, dst: str) -> str:
+    """Each input file of the folder ``src`` written to ``dst`` as
+    ``{stem}.fq.gz``: a gzip of two members with GZIP_TAIL after them.
+    Returns ``dst``."""
+    from fslr_tpu_torch.io.fastq import glob_input_files
+    os.makedirs(dst, exist_ok=True)
+    for path in sorted(glob_input_files(src)):
+        with open(path, 'rb') as fh:
+            data = fh.read()
+        stem = os.path.basename(path).split('.')[0]
+        with open(os.path.join(dst, stem + '.fq.gz'), 'wb') as fh:
+            fh.write(gzip_members(data) + GZIP_TAIL)
+    return dst
 
 
 def _padded(code_lists) -> tuple[np.ndarray, np.ndarray]:

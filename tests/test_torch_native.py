@@ -1,20 +1,24 @@
 """The port's FASTX parser (fslr_tpu_torch/csrc/fastx.cpp, io/native.py)
 against fslr_tpu's stage reader and the port's plain Python parser, field
-by field; where its library is built and loaded from; and that a failed
-build or load raises instead of falling back."""
+by field; gzip files that zlib's gzread (fslr_tpu's reader) reads and
+Python's gzip module refuses; where its library is built and loaded from;
+and that a failed build or load raises instead of falling back."""
 
 import gzip
 import hashlib
 import os
 import sys
 import threading
+import zlib
 
 import numpy as np
 import pytest
 
 from fslr_tpu.io import fastq as jfastq
+from fslr_tpu.io import native as jnative
 
 from fslr_tpu_torch.io import fastq, native
+from fslr_tpu_torch.tools.synth import gzip_forms, gzip_members, make_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIELDS = ('codes', 'lower', 'seq_off', '_names', 'name_off', '_quals',
@@ -33,20 +37,12 @@ NO_NEWLINE = b'@a one\nACGT\n+\nIIII\n@b\nGGcc\n+\nIIII'
 NO_NEWLINE_FA = b'>a\nACGT\nAC\n>b two\nggCC'
 
 
-def _members(data: bytes, k: int) -> bytes:
-    """``data`` as k gzip members, one after another, split at lines."""
-    lines = data.splitlines(keepends=True)
-    step = -(-len(lines) // k)
-    return b''.join(gzip.compress(b''.join(lines[i:i + step]))
-                    for i in range(0, len(lines), step))
-
-
 CASES = {
     'fastq': ('r.fastq', FASTQ),
     'fasta': ('r.fa', FASTA),
     'gzip': ('r.fastq.gz', gzip.compress(FASTQ)),
-    'gzip_two_members': ('r.fastq.gz', _members(FASTQ, 2)),
-    'gzip_fasta_two_members': ('r.fa.gz', _members(FASTA, 2)),
+    'gzip_two_members': ('r.fastq.gz', gzip_members(FASTQ, 2)),
+    'gzip_fasta_two_members': ('r.fa.gz', gzip_members(FASTA, 2)),
     'symbols_and_lowercase': ('s.fq', SYMBOLS),
     'empty': ('e.fastq', b''),
     'no_trailing_newline': ('n.fastq', NO_NEWLINE),
@@ -104,11 +100,91 @@ def test_slice_fastq_equals_the_plain_parser(tmp_path, built):
     _, fq = make_dataset(str(tmp_path), 200, 10)
     path = os.path.join(fq, 'b0.fastq')
     with open(path, 'rb') as fh:
-        gz = _write(tmp_path, 'b0.fastq.gz', _members(fh.read(), 2))
+        gz = _write(tmp_path, 'b0.fastq.gz', gzip_members(fh.read(), 2))
     for p in (path, gz):
         got = fastq.read_reads(p)
         assert got.n == 200
         _assert_same(got, fastq.records_to_arrays(fastq._read_fastx_py(p)))
+
+
+@pytest.fixture(scope='module')
+def slice_fastq(tmp_path_factory):
+    """A dataset's FASTQ (200 reads) and a directory for its gzip forms."""
+    root = tmp_path_factory.mktemp('gzip_forms')
+    _, fq = make_dataset(str(root), 200, 10)
+    with open(os.path.join(fq, 'b0.fastq'), 'rb') as fh:
+        return root, fh.read()
+
+
+@pytest.mark.parametrize('form', ['text_after_last_member',
+                                  'two_members_then_xyz', 'first_half',
+                                  'trailer_cut_by_6', 'trailing_zeros',
+                                  'bad_crc'])
+def test_gzip_forms_read_as_fslr_tpu_reads_them(slice_fastq, built, form):
+    """fslr_tpu reads these through zlib's gzread (its prebuilt native
+    library, not its Python fallback): trailing text or zeros end the
+    input, a cut member yields what it inflated, a bad CRC raises.  The
+    port's read_reads equals it field by field, or raises with it."""
+    root, data = slice_fastq
+    path = str(root / f'{form}.fq.gz')
+    with open(path, 'wb') as fh:
+        fh.write(gzip_forms(data)[form])
+    if form == 'bad_crc':
+        # the native read fails (gzread's -1); not None: the library ran
+        with pytest.raises(OSError):
+            jnative.parse_fastx(path)
+        with pytest.raises(OSError):
+            jfastq.read_reads(path)
+        with pytest.raises((zlib.error, OSError)):
+            fastq.read_reads(path)
+        return
+    want = jnative.parse_fastx(path)
+    assert want is not None
+    _assert_same(want, jfastq.read_reads(path))
+    got = fastq.read_reads(path)
+    _assert_same(got, want)
+    inflated = bytes(native.read_bytes(path))
+    assert data.startswith(inflated)
+    cut = form == 'first_half'
+    assert (len(inflated) < len(data)) == cut
+    assert 0 < got.n <= 200 and (got.n < 200) == cut
+
+
+def test_corrupt_gzip_raises_naming_the_file(slice_fastq, built):
+    """A failed CRC, and a later member with the gzip magic but a corrupt
+    header, raise zlib.error naming the path; fslr_tpu raises on both."""
+    root, data = slice_fastq
+    head = gzip_members(data[:data.index(b'@r1\n')])
+    for name, blob in (('crc', gzip_forms(data)['bad_crc']),
+                       ('member', head + b'\x1f\x8b\x09' + bytes(20))):
+        path = str(root / f'corrupt_{name}.fq.gz')
+        with open(path, 'wb') as fh:
+            fh.write(blob)
+        with pytest.raises(zlib.error, match=path):
+            fastq.read_reads(path)
+        with pytest.raises(OSError):
+            jfastq.read_reads(path)
+
+
+@pytest.mark.parametrize('chunk', [1, 2, 7, 1 << 22])
+@pytest.mark.parametrize('after', ['', 'one_byte', 'magic_only', 'zeros'])
+def test_gzip_members_read_in_chunks(slice_fastq, built, monkeypatch,
+                                     chunk, after):
+    """Chunks that split the magic or a member give fslr_tpu's arrays:
+    three members, then nothing, one byte, a member's magic alone (gzread
+    starts a member and finds the input cut) or zeros."""
+    root, data = slice_fastq
+    tail = {'': b'', 'one_byte': b'\x1f', 'magic_only': b'\x1f\x8b',
+            'zeros': bytes(9)}[after]
+    path = str(root / f'chunks_{chunk}_{after}.fq.gz')
+    with open(path, 'wb') as fh:
+        fh.write(gzip_members(data[:data.index(b'@r3\n')], 3) + tail)
+    monkeypatch.setattr(native, '_GZ_CHUNK', chunk)
+    got = fastq.read_reads(path)
+    assert got.n == 3
+    want = jnative.parse_fastx(path)
+    assert want is not None
+    _assert_same(got, want)
 
 
 def _native_digests() -> dict:
@@ -216,6 +292,6 @@ def test_plain_file_read_in_chunks(tmp_path, built, monkeypatch):
 def test_gzip_is_told_by_its_magic_bytes(tmp_path, built):
     """A gzip file without the .gz suffix is inflated, as fslr_tpu's
     native reader (zlib's gzopen) does."""
-    path = _write(tmp_path, 'r.fastq', _members(FASTQ, 2))
+    path = _write(tmp_path, 'r.fastq', gzip_members(FASTQ, 2))
     _assert_same(fastq.read_reads(path), jfastq.read_reads(path))
     assert fastq.read_reads(path).n == 3
