@@ -1,0 +1,26 @@
+"""Tests of the benchmark (``python -m pytest benchmark/tests -q`` from the
+repository's root).  No JAX here: the card's machine has none.  Tests
+that need a CUDA card carry the ``cuda`` marker and skip without one."""
+
+import os
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
+
+
+def pytest_configure(config):
+    config.addinivalue_line('markers',
+                            'cuda: needs a CUDA card; skips without one')
+
+
+@pytest.fixture
+def card():
+    import torch
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card')
+    return torch.device('cuda', 0)
