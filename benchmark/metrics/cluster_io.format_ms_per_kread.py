@@ -1,0 +1,20 @@
+"""Clustering's output: the cluster and representative beds' cells
+formatted (``mapping_table._cells``): span
+``write_cluster_beds.format``.
+
+Milliseconds per 1,000 input reads, summed over the window's samples
+from each sample's ``timings.json`` (``instrument.StageTimer``: a step
+span's host seconds; the stage waits for the card after its last step).
+Nothing to read where no sample ran the steps (a program without these
+spans)."""
+
+UNIT = 'ms/kread'
+STAGES = ('write_cluster_beds.format',)
+
+
+def read(rec):
+    seen = [t['timings_s'][s] for t in rec.timings for s in STAGES
+            if s in t['timings_s']]
+    if not seen or not rec.reads:
+        return None
+    return 1e3 * sum(seen) / (rec.reads / 1e3)

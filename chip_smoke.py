@@ -2158,17 +2158,24 @@ def _graph_rows(graph) -> tuple:
 
 
 def _measured_graph(data, dev, cfg):
-    """query_graph on ``dev``: (graph, stats with the wall time, the peak
-    device bytes above what was held before and the bytes a read pair
-    added)."""
+    """query_graph on ``dev``: (graph, stats with the wall time, each
+    step's seconds from its span (``instrument.span``: ``tables_s``,
+    ``enum_merge_s``, ...), the peak device bytes above what was held
+    before and the bytes a read pair added)."""
+    from fslr_tpu_torch.instrument import StageTimer, activate
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     stats: dict = {}
+    timer = StageTimer()
     t0 = time.perf_counter()
-    graph = _query_graph(data, dev, cfg, stats)
+    with activate(timer):
+        graph = _query_graph(data, dev, cfg, stats)
     stats['wall_s'] = time.perf_counter() - t0
+    for step in ('tables', 'enum_merge', 'gate_order', 'value_replay',
+                 'emit'):
+        stats[f'{step}_s'] = timer.timings.get(step, 0.0)
     stats['peak_device_bytes'] = torch.cuda.max_memory_allocated() - base
     stats['peak_bytes_per_pair'] = (stats['peak_device_bytes']
                                     / max(stats['pairs'], 1))

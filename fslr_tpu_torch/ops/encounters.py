@@ -52,10 +52,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import sys
-import time
 
 import numpy as np
 import torch
+
+from fslr_tpu_torch.instrument import span
 
 _SK_FLAG = 1 << 30
 _SK_BIG = 2**31 - 1
@@ -350,9 +351,11 @@ def build_entries(jobs: list[ChromJob], R: int, max_itv: int, max_nc: int,
     :class:`ShardedEntrySet`), which falls back to the spill when a bucket
     overflows or the card runs out of memory; all hold the same entries.
     ``stats`` receives the path (``'in-HBM'``, ``'sharded'`` or
-    ``'spill'``), the reason of a fallback (``'fallback'``), the
-    encounter, pair and entry counts and each phase's seconds (each phase
-    ends in a copy to the host, so its wall time holds its device work).
+    ``'spill'``), the reason of a fallback (``'fallback'``) and the
+    encounter, pair and entry counts.  The phases are spans
+    (``instrument.span``): ``enum_merge`` (enumeration and the merge of
+    the slices' reductions) and ``gate_order`` (the gate and the
+    traversal order).
     """
     stats = {} if stats is None else stats
     trav_scale = max_itv * max_nc
@@ -424,31 +427,28 @@ def _build_entries_dev(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
                        naln_thresh, slice_cap, merge_cap, device, stats):
     """The in-HBM path (fslr_tpu's ``_build_entries_x64``): slice results
     merge into one deduplicated accumulator (:class:`_Acc`)."""
-    t0 = time.perf_counter()
-    acc = _Acc(merge_cap)
-    for job in jobs:
-        for pk_u, sk_u, n in _enum_job_slices(job, slice_cap, R, max_nc,
-                                              device):
-            acc.add(pk_u, sk_u, n)
-            del pk_u, sk_u
-    state = acc.take()
+    with span('enum_merge'):
+        acc = _Acc(merge_cap)
+        for job in jobs:
+            for pk_u, sk_u, n in _enum_job_slices(job, slice_cap, R,
+                                                  max_nc, device):
+                acc.add(pk_u, sk_u, n)
+                del pk_u, sk_u
+        state = acc.take()
     U = int(state[0].numel()) if state else 0
     stats['pairs'] = U
-    t1 = time.perf_counter()
-    stats['enum_merge_s'] = t1 - t0
     if U == 0:
         stats['entries'] = 0
-        stats['gate_order_s'] = 0.0
         z = torch.zeros(0, dtype=torch.int64, device=device)
         return EntrySet(z, z.to(torch.int32), np.zeros(R + 1, np.int64), 0)
-    trav_scale = max_itv * max_nc
-    key, eo = _traversal_order(_gate_compact(
-        state, R, trav_scale, _gate_args(qlen2, naln, qlen_thresh,
-                                         naln_thresh, device)))
-    bounds = _query_bounds(key, 0, R + 1, trav_scale)
+    with span('gate_order'):
+        trav_scale = max_itv * max_nc
+        key, eo = _traversal_order(_gate_compact(
+            state, R, trav_scale, _gate_args(qlen2, naln, qlen_thresh,
+                                             naln_thresh, device)))
+        bounds = _query_bounds(key, 0, R + 1, trav_scale)
     E = int(key.numel())
     stats['entries'] = E
-    stats['gate_order_s'] = time.perf_counter() - t1
     return EntrySet(key, eo, bounds, E)
 
 
@@ -484,88 +484,86 @@ def _build_entries_sharded(jobs, R, max_itv, max_nc, qlen2, naln,
 
     Raises _ShardOverflow when a bucket passes _BUCKET_CAP pairs.
     """
-    t0 = time.perf_counter()
-    trav_scale = max_itv * max_nc
-    B = _n_buckets(sum(int(j.ccum[-1]) for j in jobs))
-    W = (R * R) // B + 1
-    pk_bounds = torch.arange(1, B, dtype=torch.int64, device=device) * W
-    accs = [_Acc(merge_cap) for _ in range(B)]
-    stats['pk_buckets'] = B
+    with span('enum_merge'):
+        trav_scale = max_itv * max_nc
+        B = _n_buckets(sum(int(j.ccum[-1]) for j in jobs))
+        W = (R * R) // B + 1
+        pk_bounds = torch.arange(1, B, dtype=torch.int64, device=device) * W
+        accs = [_Acc(merge_cap) for _ in range(B)]
+        stats['pk_buckets'] = B
 
-    # ---- phase 1: enumerate slices, merge each share into its bucket --
-    for job in jobs:
-        for pk_u, sk_u, _ in _enum_job_slices(job, slice_cap, R, max_nc,
-                                              device):
-            c = int(pk_u.numel())
-            cuts = [0, *torch.searchsorted(pk_u, pk_bounds).tolist(), c]
-            for acc, lo, hi in zip(accs, cuts[:-1], cuts[1:]):
-                if hi > lo:
-                    acc.add(*_share(pk_u, sk_u, lo, hi), hi - lo)
-                    if acc.size() > _BUCKET_CAP:
-                        raise _ShardOverflow(acc.size())
-            del pk_u, sk_u
-    for acc in accs:
-        acc.merge()
-        if acc.size() > _BUCKET_CAP:
-            raise _ShardOverflow(acc.size())
-    U = sum(acc.size() for acc in accs)
+        # ---- phase 1: enumerate slices, merge each share into its bucket --
+        for job in jobs:
+            for pk_u, sk_u, _ in _enum_job_slices(job, slice_cap, R, max_nc,
+                                                  device):
+                c = int(pk_u.numel())
+                cuts = [0, *torch.searchsorted(pk_u, pk_bounds).tolist(), c]
+                for acc, lo, hi in zip(accs, cuts[:-1], cuts[1:]):
+                    if hi > lo:
+                        acc.add(*_share(pk_u, sk_u, lo, hi), hi - lo)
+                        if acc.size() > _BUCKET_CAP:
+                            raise _ShardOverflow(acc.size())
+                del pk_u, sk_u
+        for acc in accs:
+            acc.merge()
+            if acc.size() > _BUCKET_CAP:
+                raise _ShardOverflow(acc.size())
+        U = sum(acc.size() for acc in accs)
     stats['pairs'] = U
-    t1 = time.perf_counter()
-    stats['enum_merge_s'] = t1 - t0
 
-    # ---- phase 2: gate and compact each pk bucket ---------------------
-    gate_args = _gate_args(qlen2, naln, qlen_thresh, naln_thresh, device)
-    gated: list = []
-    for b in range(B):
-        state = accs[b].take()
-        accs[b] = None
-        if not state:
-            continue
-        pair = _gate_compact(state, R, trav_scale, gate_args)
-        if pair[0].numel():
-            gated.append(pair)
-        del pair
+    with span('gate_order'):
+        # ---- phase 2: gate and compact each pk bucket ---------------------
+        gate_args = _gate_args(qlen2, naln, qlen_thresh, naln_thresh, device)
+        gated: list = []
+        for b in range(B):
+            state = accs[b].take()
+            accs[b] = None
+            if not state:
+                continue
+            pair = _gate_compact(state, R, trav_scale, gate_args)
+            if pair[0].numel():
+                gated.append(pair)
+            del pair
 
-    # ---- phase 3: exchange into query-range buckets, order -------------
-    E = sum(int(tv.numel()) for tv, _ in gated)
-    B2 = _n_buckets(E)
-    qw = (R + B2) // B2             # query ids a bucket; B2 * qw > R
-    tv_bounds = torch.arange(1, B2, dtype=torch.int64, device=device) \
-        * (qw * trav_scale)
-    pieces: list = [[] for _ in range(B2)]
-    while gated:
-        key, eo = _traversal_order(gated.pop(0))
-        n = int(key.numel())
-        cuts = [0, *torch.searchsorted(key, tv_bounds).tolist(), n]
-        for j, lo, hi in zip(range(B2), cuts[:-1], cuts[1:]):
-            if hi > lo:
-                pieces[j].append(_share(key, eo, lo, hi))
-        del key, eo
-    buckets: list = []
-    offsets = np.zeros(B2 + 1, np.int64)
-    bounds = np.zeros(R + 1, np.int64)
-    empty = torch.zeros(0, dtype=torch.int64, device=device)
-    for j in range(B2):
-        parts, pieces[j] = pieces[j], None
-        if sum(int(k.numel()) for k, _ in parts) > _BUCKET_CAP:
-            raise _ShardOverflow(sum(int(k.numel()) for k, _ in parts))
-        if parts:
-            state = [torch.cat([k for k, _ in parts]),
-                     torch.cat([e for _, e in parts])]
-            parts.clear()
-            key, eo = _traversal_order(state)
-        else:
-            key, eo = empty, empty.to(torch.int32)
-        q_lo, q_hi = j * qw, min((j + 1) * qw, R + 1)
-        if q_lo < q_hi:
-            bounds[q_lo:q_hi] = offsets[j] + _query_bounds(key, q_lo, q_hi,
-                                                           trav_scale)
-        buckets.append((key, eo))
-        offsets[j + 1] = offsets[j] + key.numel()
-        del key, eo
+        # ---- phase 3: exchange into query-range buckets, order -------------
+        E = sum(int(tv.numel()) for tv, _ in gated)
+        B2 = _n_buckets(E)
+        qw = (R + B2) // B2             # query ids a bucket; B2 * qw > R
+        tv_bounds = torch.arange(1, B2, dtype=torch.int64, device=device) \
+            * (qw * trav_scale)
+        pieces: list = [[] for _ in range(B2)]
+        while gated:
+            key, eo = _traversal_order(gated.pop(0))
+            n = int(key.numel())
+            cuts = [0, *torch.searchsorted(key, tv_bounds).tolist(), n]
+            for j, lo, hi in zip(range(B2), cuts[:-1], cuts[1:]):
+                if hi > lo:
+                    pieces[j].append(_share(key, eo, lo, hi))
+            del key, eo
+        buckets: list = []
+        offsets = np.zeros(B2 + 1, np.int64)
+        bounds = np.zeros(R + 1, np.int64)
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        for j in range(B2):
+            parts, pieces[j] = pieces[j], None
+            if sum(int(k.numel()) for k, _ in parts) > _BUCKET_CAP:
+                raise _ShardOverflow(sum(int(k.numel()) for k, _ in parts))
+            if parts:
+                state = [torch.cat([k for k, _ in parts]),
+                         torch.cat([e for _, e in parts])]
+                parts.clear()
+                key, eo = _traversal_order(state)
+            else:
+                key, eo = empty, empty.to(torch.int32)
+            q_lo, q_hi = j * qw, min((j + 1) * qw, R + 1)
+            if q_lo < q_hi:
+                bounds[q_lo:q_hi] = offsets[j] + _query_bounds(key, q_lo, q_hi,
+                                                               trav_scale)
+            buckets.append((key, eo))
+            offsets[j + 1] = offsets[j] + key.numel()
+            del key, eo
     stats['query_buckets'] = B2
     stats['entries'] = E
-    stats['gate_order_s'] = time.perf_counter() - t1
     return ShardedEntrySet(buckets, offsets, bounds, E)
 
 
@@ -578,103 +576,101 @@ def _build_entries_spill(jobs, R, max_itv, max_nc, qlen2, naln, qlen_thresh,
     entries one query range at a time with numpy (fslr_tpu's
     ``_build_entries_spill``).  Its size is bounded by host memory, not by
     the card's."""
-    t0 = time.perf_counter()
-    trav_scale = max_itv * max_nc
-    total_enc = sum(int(j.ccum[-1]) for j in jobs)
-    # pk-range buckets of at most phase2_cap encounters' reductions each
-    B = 1
-    while B < 4096 and total_enc // B > phase2_cap:
-        B *= 2
-    W = (R * R) // B + 1
-    bucket_bounds = np.arange(1, B, dtype=np.int64) * W
-    host_pk: list[list] = [[] for _ in range(B)]
-    host_sk: list[list] = [[] for _ in range(B)]
+    with span('enum_merge'):
+        trav_scale = max_itv * max_nc
+        total_enc = sum(int(j.ccum[-1]) for j in jobs)
+        # pk-range buckets of at most phase2_cap encounters' reductions each
+        B = 1
+        while B < 4096 and total_enc // B > phase2_cap:
+            B *= 2
+        W = (R * R) // B + 1
+        bucket_bounds = np.arange(1, B, dtype=np.int64) * W
+        host_pk: list[list] = [[] for _ in range(B)]
+        host_sk: list[list] = [[] for _ in range(B)]
 
-    # ---- phase 1: enumerate slices on the device, spill per bucket ----
-    for job in jobs:
-        for pk_u, sk_u, _ in _enum_job_slices(job, slice_cap, R, max_nc,
-                                              device):
-            c = int(pk_u.numel())
-            if c == 0:
+        # ---- phase 1: enumerate slices on the device, spill per bucket ----
+        for job in jobs:
+            for pk_u, sk_u, _ in _enum_job_slices(job, slice_cap, R, max_nc,
+                                                  device):
+                c = int(pk_u.numel())
+                if c == 0:
+                    continue
+                pk_h = pk_u.cpu().numpy()
+                sk_h = sk_u.cpu().numpy()
+                del pk_u, sk_u
+                cuts = np.concatenate(
+                    [[0], np.searchsorted(pk_h, bucket_bounds), [c]])
+                for b in range(B):
+                    if cuts[b + 1] > cuts[b]:
+                        host_pk[b].append(pk_h[cuts[b]:cuts[b + 1]])
+                        host_sk[b].append(sk_h[cuts[b]:cuts[b + 1]])
+
+    with span('gate_order'):
+        # ---- phase 2: per bucket, host dedup + float64 gate ---------------
+        # gated entries land in query-range buckets, so the traversal sort of
+        # phase 3 runs one bounded range at a time
+        gate_args = _gate_args(qlen2, naln, qlen_thresh, naln_thresh,
+                               torch.device('cpu'))
+        NQR = 64
+        q_span = max(1, -(-R // NQR))
+        range_tv: list[list] = [[] for _ in range(NQR)]
+        range_eo: list[list] = [[] for _ in range(NQR)]
+        U = 0
+        for b in range(B):
+            if not host_pk[b]:
                 continue
-            pk_h = pk_u.cpu().numpy()
-            sk_h = sk_u.cpu().numpy()
+            state = [torch.from_numpy(np.concatenate(host_pk[b])),
+                     torch.from_numpy(np.concatenate(host_sk[b]))]
+            host_pk[b] = host_sk[b] = None
+            pk_u, sk_u = _min_by_key(state)
+            U += int(pk_u.numel())
+            a, bb, rest = _split_pair(pk_u, sk_u, R)
             del pk_u, sk_u
-            cuts = np.concatenate(
-                [[0], np.searchsorted(pk_h, bucket_bounds), [c]])
-            for b in range(B):
-                if cuts[b + 1] > cuts[b]:
-                    host_pk[b].append(pk_h[cuts[b]:cuts[b + 1]])
-                    host_sk[b].append(sk_h[cuts[b]:cuts[b + 1]])
-    t1 = time.perf_counter()
-    stats['enum_merge_s'] = t1 - t0
+            ok = _gate(a, bb, *gate_args)
+            a_k = a[ok].numpy()
+            tv_k = a_k * trav_scale + rest[ok].numpy()
+            eo_k = bb[ok].numpy().astype(np.int32)
+            del a, bb, rest, ok
+            if len(a_k):
+                qr_k = a_k // q_span
+                ord_q = np.argsort(qr_k, kind='stable')
+                cuts = np.searchsorted(qr_k[ord_q], np.arange(NQR + 1))
+                tv_s = tv_k[ord_q]
+                eo_s_ = eo_k[ord_q]
+                del qr_k, ord_q
+                for qr in range(NQR):
+                    if cuts[qr + 1] > cuts[qr]:
+                        range_tv[qr].append(tv_s[cuts[qr]:cuts[qr + 1]])
+                        range_eo[qr].append(eo_s_[cuts[qr]:cuts[qr + 1]])
+                del tv_s, eo_s_
+            del a_k, tv_k, eo_k
+        stats['pairs'] = U
 
-    # ---- phase 2: per bucket, host dedup + float64 gate ---------------
-    # gated entries land in query-range buckets, so the traversal sort of
-    # phase 3 runs one bounded range at a time
-    gate_args = _gate_args(qlen2, naln, qlen_thresh, naln_thresh,
-                           torch.device('cpu'))
-    NQR = 64
-    q_span = max(1, -(-R // NQR))
-    range_tv: list[list] = [[] for _ in range(NQR)]
-    range_eo: list[list] = [[] for _ in range(NQR)]
-    U = 0
-    for b in range(B):
-        if not host_pk[b]:
-            continue
-        state = [torch.from_numpy(np.concatenate(host_pk[b])),
-                 torch.from_numpy(np.concatenate(host_sk[b]))]
-        host_pk[b] = host_sk[b] = None
-        pk_u, sk_u = _min_by_key(state)
-        U += int(pk_u.numel())
-        a, bb, rest = _split_pair(pk_u, sk_u, R)
-        del pk_u, sk_u
-        ok = _gate(a, bb, *gate_args)
-        a_k = a[ok].numpy()
-        tv_k = a_k * trav_scale + rest[ok].numpy()
-        eo_k = bb[ok].numpy().astype(np.int32)
-        del a, bb, rest, ok
-        if len(a_k):
-            qr_k = a_k // q_span
-            ord_q = np.argsort(qr_k, kind='stable')
-            cuts = np.searchsorted(qr_k[ord_q], np.arange(NQR + 1))
-            tv_s = tv_k[ord_q]
-            eo_s_ = eo_k[ord_q]
-            del qr_k, ord_q
-            for qr in range(NQR):
-                if cuts[qr + 1] > cuts[qr]:
-                    range_tv[qr].append(tv_s[cuts[qr]:cuts[qr + 1]])
-                    range_eo[qr].append(eo_s_[cuts[qr]:cuts[qr + 1]])
-            del tv_s, eo_s_
-        del a_k, tv_k, eo_k
-    stats['pairs'] = U
-
-    # ---- phase 3: per query range, traversal order + bounds -----------
-    counts_q = np.zeros(R, np.int64)
-    ei_parts: list[np.ndarray] = []
-    eo_parts: list[np.ndarray] = []
-    E = 0
-    for qr in range(NQR):
-        if not range_tv[qr]:
-            continue
-        tv = np.concatenate(range_tv[qr])
-        eo_r = np.concatenate(range_eo[qr])
-        range_tv[qr] = range_eo[qr] = None
-        order = np.argsort(tv, kind='stable')    # tv is unique
-        tv = tv[order]
-        eo_r = eo_r[order]
-        del order
-        eq_r = tv // trav_scale
-        q_lo = qr * q_span
-        hi_q = min(q_lo + q_span, R)        # the last range is shorter
-        w = hi_q - q_lo                     # when R % q_span != 0
-        counts_q[q_lo:hi_q] += np.bincount(eq_r - q_lo, minlength=w)[:w]
-        ei_parts.append(((tv // max_nc) % max_itv).astype(np.int32))
-        del tv, eq_r
-        eo_parts.append(eo_r)
-        E += len(eo_r)
+        # ---- phase 3: per query range, traversal order + bounds -----------
+        counts_q = np.zeros(R, np.int64)
+        ei_parts: list[np.ndarray] = []
+        eo_parts: list[np.ndarray] = []
+        E = 0
+        for qr in range(NQR):
+            if not range_tv[qr]:
+                continue
+            tv = np.concatenate(range_tv[qr])
+            eo_r = np.concatenate(range_eo[qr])
+            range_tv[qr] = range_eo[qr] = None
+            order = np.argsort(tv, kind='stable')    # tv is unique
+            tv = tv[order]
+            eo_r = eo_r[order]
+            del order
+            eq_r = tv // trav_scale
+            q_lo = qr * q_span
+            hi_q = min(q_lo + q_span, R)        # the last range is shorter
+            w = hi_q - q_lo                     # when R % q_span != 0
+            counts_q[q_lo:hi_q] += np.bincount(eq_r - q_lo, minlength=w)[:w]
+            ei_parts.append(((tv // max_nc) % max_itv).astype(np.int32))
+            del tv, eq_r
+            eo_parts.append(eo_r)
+            E += len(eo_r)
     stats['entries'] = E
-    stats['gate_order_s'] = time.perf_counter() - t1
     if E == 0:
         z = np.zeros(0, np.int32)
         return HostEntrySet(z, z, np.zeros(R + 1, np.int64), 0)

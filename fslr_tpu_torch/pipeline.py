@@ -47,7 +47,7 @@ import torch.distributed as dist
 from fslr_tpu_torch.config import PipelineConfig
 from fslr_tpu_torch.encode import revcomp_str
 from fslr_tpu_torch.index import reference as refmod
-from fslr_tpu_torch.instrument import StageTimer
+from fslr_tpu_torch.instrument import StageTimer, activate, span
 from fslr_tpu_torch.io import bam as bamio
 from fslr_tpu_torch.io.fastq import glob_input_files, read_reads
 from fslr_tpu_torch.panel import load_panel
@@ -359,7 +359,9 @@ def _run_pipeline(config: PipelineConfig, device: torch.device,
     timer = StageTimer(device)
     timer.start_profile(device)
     try:
-        finished = _run_stages(config, device, file_shard, basename, timer)
+        with activate(timer):
+            finished = _run_stages(config, device, file_shard, basename,
+                                   timer)
     except BaseException:
         timer.stop_profile(config.name, device, failed=True)
         raise
@@ -377,9 +379,8 @@ def _run_stages(config: PipelineConfig, device: torch.device, file_shard,
     @contextlib.contextmanager
     def stage(name):
         # device work lands in its own stage: wait for it before the
-        # stage's clock stops; under torch.profiler the stage is a named
-        # range (tools/profile_run.py reads it)
-        with timer.stage(name), torch.profiler.record_function(name):
+        # stage's clock stops
+        with timer.stage(name):
             yield
             _synchronize(device)
 
@@ -395,8 +396,9 @@ def _run_stages(config: PipelineConfig, device: torch.device, file_shard,
         with stage('read_mappings'):
             bed = cluster.read_mappings(f'{basename}.mappings.bed',
                                         engine='pyarrow')
-            chr_lengths = bamio.get_chromosome_lengths(
-                f'{basename}.bwa_dodi.bam')
+            with span('header'):
+                chr_lengths = bamio.get_chromosome_lengths(
+                    f'{basename}.bwa_dodi.bam')
         with stage('clustering'):
             res = cluster.cluster_stage(bed, chr_lengths, config.cluster,
                                         device)
@@ -535,9 +537,8 @@ def _align_stages(config: PipelineConfig, device: torch.device, panel,
         bam_items.extend(items)
         tables.append(table)
         # worker time (overlapped with align) under the stage names
-        for name, dt in (('bam_records', t_rec), ('mapping_table', t_map)):
-            timer.timings[name] = timer.timings.get(name, 0.0) + dt
-            timer.counts[name] = timer.counts.get(name, 0) + 1
+        timer.add('bam_records', t_rec)
+        timer.add('mapping_table', t_map)
 
     pending: list = []
     with ThreadPoolExecutor(1) as post_pool:

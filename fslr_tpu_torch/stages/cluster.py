@@ -35,13 +35,13 @@ import csv
 import dataclasses
 import re
 import sys
-import time
 from collections import namedtuple
 
 import numpy as np
 import torch
 
 from fslr_tpu_torch.config import ClusterConfig
+from fslr_tpu_torch.instrument import span
 from fslr_tpu_torch.ops import capwalk, components, encounters, jaccard
 from fslr_tpu_torch.parallel import cluster_merge, dispatch
 
@@ -166,11 +166,14 @@ def read_mappings(path: str, engine: str = 'pyarrow') -> dict:
     stage with the C engine (``'c'``)."""
     if engine not in ENGINES:
         raise ValueError(f'engine {engine!r}: one of {ENGINES}')
-    with open(path, newline='') as fh:
-        rows = list(csv.reader(fh, delimiter='\t'))
-    header, body = rows[0], rows[1:]
-    cols = list(zip(*body)) if body else [()] * len(header)
-    return {h: _parse_column(list(c), engine) for h, c in zip(header, cols)}
+    with span('parse'):
+        with open(path, newline='') as fh:
+            rows = list(csv.reader(fh, delimiter='\t'))
+        header, body = rows[0], rows[1:]
+        cols = list(zip(*body)) if body else [()] * len(header)
+    with span('typing'):
+        return {h: _parse_column(list(c), engine)
+                for h, c in zip(header, cols)}
 
 
 def _first_index(keys: np.ndarray):
@@ -333,7 +336,10 @@ def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
     node first-seen order) of the reference traversal.  From
     ``cfg.device_enum_min_encounters`` encounters on it takes the scale
     path (:func:`_query_graph_device`), which fills ``stats`` with its
-    path, sizes and phase seconds.
+    path and sizes.  Either path times its steps as spans
+    (``instrument.span``): ``tables`` (the per-read tables, the interval
+    index, the jobs and the tables' upload), ``enum_merge`` (1),
+    ``gate_order`` (2), ``value_replay`` (3) and ``emit`` (4).
 
       1. the encounter stream is enumerated in traversal order (query
          first-seen order, interval list order, ascending-start neighbour
@@ -346,80 +352,82 @@ def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
       4. emissions arrive in traversal order, so match/edges/node order
          are the reference's.
     """
-    query_intervals = {}
-    for itv in data:
-        query_intervals.setdefault(itv.qname, []).append(itv)
-    index = _ChromIndex(data)
+    with span('tables'):
+        query_intervals = {}
+        for itv in data:
+            query_intervals.setdefault(itv.qname, []).append(itv)
+        index = _ChromIndex(data)
 
-    def as_tuples(lst):
-        return [(i.chrom, i.start, i.end, i.aln_size) for i in lst]
+        def as_tuples(lst):
+            return [(i.chrom, i.start, i.end, i.aln_size) for i in lst]
 
-    qnames_order = list(query_intervals.keys())
-    qid = {q: i for i, q in enumerate(qnames_order)}
-    R = len(qnames_order)
-    M = cfg.max_intervals_per_read
-    chrom_a = np.zeros((R, M), np.int32)
-    start_a = np.zeros((R, M), np.int32)
-    end_a = np.zeros((R, M), np.int32)
-    size_a = np.zeros((R, M), np.float32)
-    lens_a = np.zeros(R, np.int32)
-    itv_rank = {}
-    for q, lst in query_intervals.items():
-        r = qid[q]
-        lens_a[r] = len(lst)
-        for i, itv in enumerate(lst):
-            itv_rank[id(itv)] = i
-            if i < M:
-                chrom_a[r, i] = itv.chrom
-                start_a[r, i] = itv.start
-                end_a[r, i] = itv.end
-                size_a[r, i] = itv.aln_size
-    qlen2_arr = np.zeros(R, np.float64)
-    naln_arr = np.zeros(R, np.float64)
-    for q, lst in query_intervals.items():
-        qlen2_arr[qid[q]] = lst[0].qlen2
-        naln_arr[qid[q]] = lst[0].n_alignments
+        qnames_order = list(query_intervals.keys())
+        qid = {q: i for i, q in enumerate(qnames_order)}
+        R = len(qnames_order)
+        M = cfg.max_intervals_per_read
+        chrom_a = np.zeros((R, M), np.int32)
+        start_a = np.zeros((R, M), np.int32)
+        end_a = np.zeros((R, M), np.int32)
+        size_a = np.zeros((R, M), np.float32)
+        lens_a = np.zeros(R, np.int32)
+        itv_rank = {}
+        for q, lst in query_intervals.items():
+            r = qid[q]
+            lens_a[r] = len(lst)
+            for i, itv in enumerate(lst):
+                itv_rank[id(itv)] = i
+                if i < M:
+                    chrom_a[r, i] = itv.chrom
+                    start_a[r, i] = itv.start
+                    end_a[r, i] = itv.end
+                    size_a[r, i] = itv.aln_size
+        qlen2_arr = np.zeros(R, np.float64)
+        naln_arr = np.zeros(R, np.float64)
+        for q, lst in query_intervals.items():
+            qlen2_arr[qid[q]] = lst[0].qlen2
+            naln_arr[qid[q]] = lst[0].n_alignments
 
-    # table width: the smallest power of two >= 2 covering the longest
-    # list (at most M); longer lists take the exact host path
-    if R:
-        mx = int(lens_a.max())
-        M_eff = 2
-        while M_eff < min(mx, M):
-            M_eff *= 2
-        if M_eff < M:
-            M = M_eff
-            chrom_a, start_a, end_a, size_a = (
-                chrom_a[:, :M], start_a[:, :M], end_a[:, :M], size_a[:, :M])
+        # table width: the smallest power of two >= 2 covering the longest
+        # list (at most M); longer lists take the exact host path
+        if R:
+            mx = int(lens_a.max())
+            M_eff = 2
+            while M_eff < min(mx, M):
+                M_eff *= 2
+            if M_eff < M:
+                M = M_eff
+                chrom_a, start_a, end_a, size_a = (
+                    chrom_a[:, :M], start_a[:, :M], end_a[:, :M],
+                    size_a[:, :M])
 
-    max_itv = max((len(v) for v in query_intervals.values()), default=1)
-    max_nc = max((len(v[3]) for v in index.arrays.values()), default=1) + 1
-    trav_scale = max_itv * max_nc
+        max_itv = max((len(v) for v in query_intervals.values()), default=1)
+        max_nc = max((len(v[3]) for v in index.arrays.values()), default=1) + 1
+        trav_scale = max_itv * max_nc
 
-    jobs = []       # (rid_arr, irk_arr, starts, ends, lo, counts, ccum)
-    total_enc = 0
-    for chrom, (starts, ends, pmax, items) in index.arrays.items():
-        nc = len(items)
-        if nc == 0:
-            continue
-        rid_arr = np.fromiter((qid[i.qname] for i in items), np.int64, nc)
-        irk_arr = np.fromiter((itv_rank[id(i)] for i in items),
-                              np.int64, nc)
-        hi = np.searchsorted(starts, ends, side='right')
-        lo = np.minimum(np.searchsorted(pmax, starts, side='left'), hi)
-        counts = hi - lo
-        total = int(counts.sum())
-        if total == 0:
-            continue
-        total_enc += total
-        ccum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
-        jobs.append((rid_arr, irk_arr, np.asarray(starts),
-                     np.asarray(ends), lo, counts, ccum))
+        jobs = []       # (rid_arr, irk_arr, starts, ends, lo, counts, ccum)
+        total_enc = 0
+        for chrom, (starts, ends, pmax, items) in index.arrays.items():
+            nc = len(items)
+            if nc == 0:
+                continue
+            rid_arr = np.fromiter((qid[i.qname] for i in items), np.int64, nc)
+            irk_arr = np.fromiter((itv_rank[id(i)] for i in items),
+                                  np.int64, nc)
+            hi = np.searchsorted(starts, ends, side='right')
+            lo = np.minimum(np.searchsorted(pmax, starts, side='left'), hi)
+            counts = hi - lo
+            total = int(counts.sum())
+            if total == 0:
+                continue
+            total_enc += total
+            ccum = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+            jobs.append((rid_arr, irk_arr, np.asarray(starts),
+                         np.asarray(ends), lo, counts, ccum))
 
-    dev_arrays = jaccard.upload_interval_arrays(
-        chrom_a, start_a, end_a, size_a, np.minimum(lens_a, M), device)
-    host_arrays = (chrom_a, start_a, end_a, size_a, lens_a)
-    over = np.nonzero(lens_a > M)[0]
+        dev_arrays = jaccard.upload_interval_arrays(
+            chrom_a, start_a, end_a, size_a, np.minimum(lens_a, M), device)
+        host_arrays = (chrom_a, start_a, end_a, size_a, lens_a)
+        over = np.nonzero(lens_a > M)[0]
 
     def host_value(eqs, eos):
         """Exact host greedy Jaccard for reads whose interval lists
@@ -445,105 +453,116 @@ def query_graph(data, overlap_cutoff, jaccard_cutoffs, edge_threshold,
             qnames_order, over, dev_arrays, M, host_value, host_arrays,
             device, {} if stats is None else stats)
 
-    # bounded-memory enumeration: interval ranges in slices of at most
-    # ENCOUNTER_SLICE_CAP encounters, each reduced to per-pair minima
-    tv_span = trav_scale * R + 1        # tv < trav_scale * R
+    with span('enum_merge'):
+        # bounded-memory enumeration: interval ranges in slices of at most
+        # ENCOUNTER_SLICE_CAP encounters, each reduced to per-pair minima
+        tv_span = trav_scale * R + 1        # tv < trav_scale * R
 
-    def _reduce(pk, tv):
-        if R * R < (1 << 62) // tv_span:
-            # one fused key: the first of each pk group is its minimum
-            fused = np.sort(pk * tv_span + tv)
-            pk_s = fused // tv_span
+        def _reduce(pk, tv):
+            if R * R < (1 << 62) // tv_span:
+                # one fused key: the first of each pk group is its minimum
+                fused = np.sort(pk * tv_span + tv)
+                pk_s = fused // tv_span
+                grp = np.concatenate([[0], np.nonzero(np.diff(pk_s))[0] + 1])
+                return pk_s[grp], fused[grp] % tv_span
+            ord1 = np.argsort(pk)
+            pk_s = pk[ord1]
+            tv_s = tv[ord1]
             grp = np.concatenate([[0], np.nonzero(np.diff(pk_s))[0] + 1])
-            return pk_s[grp], fused[grp] % tv_span
-        ord1 = np.argsort(pk)
-        pk_s = pk[ord1]
-        tv_s = tv[ord1]
-        grp = np.concatenate([[0], np.nonzero(np.diff(pk_s))[0] + 1])
-        return pk_s[grp], np.minimum.reduceat(tv_s, grp)
+            return pk_s[grp], np.minimum.reduceat(tv_s, grp)
 
-    red_pk, red_tv = [], []
-    for rid_arr, irk_arr, starts, ends, lo, counts, ccum in jobs:
-        nc = len(starts)
-        total = int(counts.sum())
-        cuts = [0]
-        while cuts[-1] < nc:
-            nxt = int(np.searchsorted(ccum, ccum[cuts[-1]]
-                                      + ENCOUNTER_SLICE_CAP, side='left'))
-            cuts.append(min(max(nxt, cuts[-1] + 1), nc))
-        idt = np.int32 if total < 2**31 and nc < 2**31 else np.int64
-        for s0, s1 in zip(cuts[:-1], cuts[1:]):
-            cnt_s = counts[s0:s1]
-            tot_s = int(cnt_s.sum())
-            if tot_s == 0:
-                continue
-            qx = np.repeat(np.arange(s0, s1, dtype=idt), cnt_s)
-            offs = ccum[s0:s1] - ccum[s0]
-            nx = (np.arange(tot_s, dtype=idt)
-                  - np.repeat((offs - lo[s0:s1]).astype(idt), cnt_s))
-            keep = ends[nx] >= starts[qx]
-            qx, nx = qx[keep], nx[keep]
-            a, b = rid_arr[qx], rid_arr[nx]
-            ok = a != b
-            a, b, qx, nx = a[ok], b[ok], qx[ok], nx[ok]
-            if not len(a):
-                continue
-            pk = np.minimum(a, b) * R + np.maximum(a, b)
-            # traversal key: query first-seen order, interval rank, then
-            # ascending-start neighbour sequence (nx)
-            tv = (a * max_itv + irk_arr[qx]) * max_nc + nx
-            pk, tv = _reduce(pk, tv)
-            red_pk.append(pk)
-            red_tv.append(tv)
-    if red_pk:
-        pair_pk, pair_tv = _reduce(np.concatenate(red_pk),
-                                   np.concatenate(red_tv))
-        eorder = np.argsort(pair_tv)
-        tv_e = pair_tv[eorder]
-        pk_e = pair_pk[eorder]
-        eq = tv_e // trav_scale
-        ei = (tv_e // max_nc) % max_itv
-        p_lo = pk_e // R
-        p_hi = pk_e % R
-        eo = np.where(eq == p_lo, p_hi, p_lo)
-        q_ok = (np.minimum(qlen2_arr[eq], qlen2_arr[eo])
-                / np.maximum(np.maximum(qlen2_arr[eq], qlen2_arr[eo]),
-                             1e-12)) >= 1 - qlen_diff
-        n_ok = (np.minimum(naln_arr[eq], naln_arr[eo])
-                / np.maximum(naln_arr[eq], naln_arr[eo])) >= 1 - n_aln_diff
-        gate = q_ok | n_ok          # "not different"
-        eq, ei, eo = eq[gate], ei[gate], eo[gate]
-    else:
-        eq = ei = eo = np.zeros(0, np.int64)
+        red_pk, red_tv = [], []
+        for rid_arr, irk_arr, starts, ends, lo, counts, ccum in jobs:
+            nc = len(starts)
+            total = int(counts.sum())
+            cuts = [0]
+            while cuts[-1] < nc:
+                nxt = int(np.searchsorted(ccum, ccum[cuts[-1]]
+                                          + ENCOUNTER_SLICE_CAP, side='left'))
+                cuts.append(min(max(nxt, cuts[-1] + 1), nc))
+            idt = np.int32 if total < 2**31 and nc < 2**31 else np.int64
+            for s0, s1 in zip(cuts[:-1], cuts[1:]):
+                cnt_s = counts[s0:s1]
+                tot_s = int(cnt_s.sum())
+                if tot_s == 0:
+                    continue
+                qx = np.repeat(np.arange(s0, s1, dtype=idt), cnt_s)
+                offs = ccum[s0:s1] - ccum[s0]
+                nx = (np.arange(tot_s, dtype=idt)
+                      - np.repeat((offs - lo[s0:s1]).astype(idt), cnt_s))
+                keep = ends[nx] >= starts[qx]
+                qx, nx = qx[keep], nx[keep]
+                a, b = rid_arr[qx], rid_arr[nx]
+                ok = a != b
+                a, b, qx, nx = a[ok], b[ok], qx[ok], nx[ok]
+                if not len(a):
+                    continue
+                pk = np.minimum(a, b) * R + np.maximum(a, b)
+                # traversal key: query first-seen order, interval rank, then
+                # ascending-start neighbour sequence (nx)
+                tv = (a * max_itv + irk_arr[qx]) * max_nc + nx
+                pk, tv = _reduce(pk, tv)
+                red_pk.append(pk)
+                red_tv.append(tv)
+        if red_pk:
+            pair_pk, pair_tv = _reduce(np.concatenate(red_pk),
+                                       np.concatenate(red_tv))
 
-    bounds = np.searchsorted(eq, np.arange(R + 1))
-    j64, n_i = capwalk.value_entries(eq, eo, dev_arrays, M, overlap_cutoff,
-                                     over, host_value, host_arrays)
-    passv, gated_e = capwalk.pass_flags(j64, n_i, list(jaccard_cutoffs))
-    if cfg.exact_cap_replay and len(eq) \
-            and (capwalk.pass_counts(passv, bounds)
-                 >= edge_threshold).any():
-        # a query reaches the soft edge cap: a capped break leaves pairs
-        # unseen for re-testing, so replay the walk exactly over the full
-        # stream, each event valued in the direction it is reached
-        j64r, n_ir = capwalk.value_entries(eo, eq, dev_arrays, M,
-                                           overlap_cutoff, over,
-                                           host_value, host_arrays)
-        passr, _ = capwalk.pass_flags(j64r, n_ir, list(jaccard_cutoffs))
-        pk_v = np.minimum(eq, eo) * R + np.maximum(eq, eo)
-        vord = np.argsort(pk_v)
-        eq_w, eo_w, j_w = _exact_capped_walk(
-            jobs, R, max_itv, max_nc, edge_threshold,
-            pk_v[vord], eq[vord],
-            (j64[vord], n_i[vord], passv[vord]),
-            (j64r[vord], n_ir[vord], passr[vord]))
-        return _emit_from_pairs(eq_w, eo_w, j_w, qnames_order)
-    rc = np.ones(len(eq), bool)
-    rc[1:] = (eq[1:] != eq[:-1]) | (ei[1:] != ei[:-1])
-    emit = capwalk.replay(passv, gated_e, rc, eq, bounds, edge_threshold)
-    idx_e = np.flatnonzero(emit)
-    return _emit_outputs(idx_e, eo[idx_e], j64[idx_e], bounds,
-                         qnames_order)
+    with span('gate_order'):
+        if red_pk:
+            eorder = np.argsort(pair_tv)
+            tv_e = pair_tv[eorder]
+            pk_e = pair_pk[eorder]
+            eq = tv_e // trav_scale
+            ei = (tv_e // max_nc) % max_itv
+            p_lo = pk_e // R
+            p_hi = pk_e % R
+            eo = np.where(eq == p_lo, p_hi, p_lo)
+            q_ok = (np.minimum(qlen2_arr[eq], qlen2_arr[eo])
+                    / np.maximum(np.maximum(qlen2_arr[eq], qlen2_arr[eo]),
+                                 1e-12)) >= 1 - qlen_diff
+            n_ok = (np.minimum(naln_arr[eq], naln_arr[eo])
+                    / np.maximum(naln_arr[eq], naln_arr[eo])) \
+                >= 1 - n_aln_diff
+            gate = q_ok | n_ok          # "not different"
+            eq, ei, eo = eq[gate], ei[gate], eo[gate]
+        else:
+            eq = ei = eo = np.zeros(0, np.int64)
+
+    with span('value_replay'):
+        bounds = np.searchsorted(eq, np.arange(R + 1))
+        j64, n_i = capwalk.value_entries(eq, eo, dev_arrays, M,
+                                         overlap_cutoff, over, host_value,
+                                         host_arrays)
+        passv, gated_e = capwalk.pass_flags(j64, n_i, list(jaccard_cutoffs))
+        if cfg.exact_cap_replay and len(eq) \
+                and (capwalk.pass_counts(passv, bounds)
+                     >= edge_threshold).any():
+            # a query reaches the soft edge cap: a capped break leaves
+            # pairs unseen for re-testing, so replay the walk exactly over
+            # the full stream, each event valued in the direction it is
+            # reached
+            j64r, n_ir = capwalk.value_entries(eo, eq, dev_arrays, M,
+                                               overlap_cutoff, over,
+                                               host_value, host_arrays)
+            passr, _ = capwalk.pass_flags(j64r, n_ir, list(jaccard_cutoffs))
+            pk_v = np.minimum(eq, eo) * R + np.maximum(eq, eo)
+            vord = np.argsort(pk_v)
+            eq_e, eo_e, j_e = _exact_capped_walk(
+                jobs, R, max_itv, max_nc, edge_threshold,
+                pk_v[vord], eq[vord],
+                (j64[vord], n_i[vord], passv[vord]),
+                (j64r[vord], n_ir[vord], passr[vord]))
+        else:
+            rc = np.ones(len(eq), bool)
+            rc[1:] = (eq[1:] != eq[:-1]) | (ei[1:] != ei[:-1])
+            emit = capwalk.replay(passv, gated_e, rc, eq, bounds,
+                                  edge_threshold)
+            idx_e = np.flatnonzero(emit)
+            eq_e = np.searchsorted(bounds, idx_e, side='right') - 1
+            eo_e, j_e = eo[idx_e], j64[idx_e]
+    with span('emit'):
+        return _emit_from_pairs(eq_e, eo_e, j_e, qnames_order)
 
 
 class _ConsumedSet:
@@ -749,14 +768,9 @@ def _exact_walk_chunk(jobs, R, max_itv, max_nc, T, pk_valued,
     return eq[pos], oth[pos], jval[pos]
 
 
-def _emit_outputs(idx, eo_e, j_e, bounds, qnames_order):
-    """match/edges/node order from the replay's emissions (traversal
-    order: ascending entry index, queries in first-seen order)."""
-    eq_e = np.searchsorted(bounds, idx, side='right') - 1
-    return _emit_from_pairs(eq_e, eo_e, j_e, qnames_order)
-
-
 def _emit_from_pairs(eq_e, eo_e, j_e, qnames_order):
+    """match/edges/node order from the walk's emissions (query, other
+    read, Jaccard) in traversal order."""
     match = set()
     edges = []
     node_pos = {}
@@ -783,8 +797,9 @@ def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
     encounters, in buckets above it) or, above
     ``encounters.SPILL_DIRECT_MIN``, in host memory, and the capped walk
     is valued and replayed in closed form (ops/capwalk.py).  ``stats``
-    gets the build's path and sizes and the seconds of enumeration +
-    merge, gate + order, valuing + replay and emission."""
+    gets the build's path and sizes; the steps are spans
+    (``instrument.span``): ``enum_merge`` and ``gate_order`` in the
+    build, then ``value_replay`` and ``emit``."""
     ents = encounters.build_entries(
         [encounters.ChromJob(starts=s, ends=e, lo=lo, ccum=ccum, rid=rid,
                              irk=irk)
@@ -792,27 +807,26 @@ def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
         R, max_itv, max_nc, qlen2_arr, naln_arr, 1.0 - qlen_diff,
         1.0 - n_aln_diff, cfg.enum_slice_cap, cfg.enum_merge_cap,
         cfg.enum_spill_min_encounters, device, stats)
-    t0 = time.perf_counter()
-    bounds = ents.bounds
-    cutoffs = list(jaccard_cutoffs)
-    if isinstance(ents, encounters.HostEntrySet):
-        # the spill path: entries in host memory, valued and replayed in
-        # query-aligned chunks
-        idx_e, eo_e, j_e = capwalk.value_and_replay_host(
-            ents.ei, ents.eo, bounds, dev_arrays, M, overlap_cutoff,
-            cutoffs, edge_threshold, over, host_value, host_arrays)
-    else:
-        idx_e, eo_e, j_e = capwalk.resolve_device(
-            ents.device_buckets(), bounds, max_itv, max_nc, dev_arrays,
-            M, overlap_cutoff, cutoffs, edge_threshold, over, host_value)
-    del ents
-    t1 = time.perf_counter()
-    stats['value_replay_s'] = t1 - t0
+    with span('value_replay'):
+        bounds = ents.bounds
+        cutoffs = list(jaccard_cutoffs)
+        if isinstance(ents, encounters.HostEntrySet):
+            # the spill path: entries in host memory, valued and replayed
+            # in query-aligned chunks
+            idx_e, eo_e, j_e = capwalk.value_and_replay_host(
+                ents.ei, ents.eo, bounds, dev_arrays, M, overlap_cutoff,
+                cutoffs, edge_threshold, over, host_value, host_arrays)
+        else:
+            idx_e, eo_e, j_e = capwalk.resolve_device(
+                ents.device_buckets(), bounds, max_itv, max_nc, dev_arrays,
+                M, overlap_cutoff, cutoffs, edge_threshold, over,
+                host_value)
+        del ents
+        eq_e = np.searchsorted(bounds, idx_e, side='right') - 1
     # the scale path keeps the first-encounter closed form where a query
     # caps (the exact multi-occurrence walk is the host path's); a query
     # that emits edge_threshold edges has almost certainly capped
     if len(idx_e):
-        eq_e = np.searchsorted(bounds, idx_e, side='right') - 1
         n_cap = int((np.bincount(eq_e, minlength=R)
                      >= edge_threshold).sum())
         if n_cap:
@@ -824,8 +838,8 @@ def _query_graph_device(jobs, R, max_itv, max_nc, qlen2_arr, naln_arr,
                   f'adversarial capped frames, divergence only splits '
                   f'over-cap-bridged clusters; see ops/capwalk.py)',
                   file=sys.stderr)
-    out = _emit_outputs(idx_e, eo_e, j_e, bounds, qnames_order)
-    stats['emit_s'] = time.perf_counter() - t1
+    with span('emit'):
+        out = _emit_from_pairs(eq_e, eo_e, j_e, qnames_order)
     stats['edges'] = len(out[1])
     return out
 
@@ -900,57 +914,65 @@ class ClusterResult:
 def cluster_stage(bed: dict, chromosome_lengths: dict, cfg: ClusterConfig,
                   device: torch.device) -> ClusterResult:
     """The clustering block: bed columns (:func:`read_mappings`) and the
-    BAM's contig lengths in, cluster and representative beds out."""
-    chromosome_mask = set()
-    if cfg.cluster_mask:
-        allowed = set(bed['chrom'].tolist())
-        for item in cfg.cluster_mask:
-            if item in allowed or item == 'subtelomere':
-                chromosome_mask.add(item)
+    BAM's contig lengths in, cluster and representative beds out.  Its
+    steps are spans (``instrument.span``): ``prepare``, query_graph's
+    (``tables``, ``enum_merge``, ``gate_order``, ``value_replay``,
+    ``emit``), ``components``, ``assign`` and ``representatives``."""
+    with span('prepare'):
+        chromosome_mask = set()
+        if cfg.cluster_mask:
+            allowed = set(bed['chrom'].tolist())
+            for item in cfg.cluster_mask:
+                if item in allowed or item == 'subtelomere':
+                    chromosome_mask.add(item)
 
-    bed, chr_lengths, chromosome_mask, cmap = rename_chromosomes(
-        bed, chromosome_lengths, chromosome_mask)
-    if cfg.filter_false:
-        bed = delete_false(bed)
+        bed, chr_lengths, chromosome_mask, cmap = rename_chromosomes(
+            bed, chromosome_lengths, chromosome_mask)
+        if cfg.filter_false:
+            bed = delete_false(bed)
 
-    fillings = keep_fillings(bed)
-    data = prepare_data(fillings, chromosome_mask, chr_lengths,
-                        cfg.subtelomere_threshold)
-    if cfg.filter_high_coverage:
-        # the reference crashes on this flag; its documented intent: drop
-        # intervals whose midpoint coverage exceeds the threshold
-        data = filter_high_coverage(data, bed, chr_lengths,
-                                    cfg.high_coverage_threshold)
+        fillings = keep_fillings(bed)
+        data = prepare_data(fillings, chromosome_mask, chr_lengths,
+                            cfg.subtelomere_threshold)
+        if cfg.filter_high_coverage:
+            # the reference crashes on this flag; its documented intent:
+            # drop intervals whose midpoint coverage exceeds the threshold
+            data = filter_high_coverage(data, bed, chr_lengths,
+                                        cfg.high_coverage_threshold)
 
     stats = {'path': 'host'}
     _, edges, node_pos = query_graph(
         data, cfg.overlap, list(cfg.jaccard_cutoffs), cfg.edge_threshold,
         cfg.qlen_diff, cfg.n_alignment_diff, cfg, device, stats)
-    subgraphs = get_subgraphs(edges, node_pos, device)
+    with span('components'):
+        subgraphs = get_subgraphs(edges, node_pos, device)
     if len(subgraphs) == len(node_pos):       # true iff no edges
         return ClusterResult(None, None, True, subgraphs, stats)
 
     # every row gets its read's cluster and size; reads in no component
     # follow as singletons in first-row order.  As after pandas' left
     # merge, both columns turn float once a row had no component.
-    member = {}
-    for num, comp in enumerate(subgraphs):
-        for q in comp:
-            member[q] = (num, len(comp))
-    qn = bed['qname'].tolist()
-    singles: dict = {}
-    n_cluster = len(subgraphs)
-    cluster = np.empty(len(qn), np.int64)
-    n_reads = np.empty(len(qn), np.int64)
-    for i, q in enumerate(qn):
-        if q in member:
-            cluster[i], n_reads[i] = member[q]
-        else:
-            cluster[i] = singles.setdefault(q, n_cluster + len(singles))
-            n_reads[i] = 1
-    if singles:
-        cluster, n_reads = cluster.astype(np.float64), \
-            n_reads.astype(np.float64)
-    out = chrom_to_str({**bed, 'cluster': cluster, 'n_reads': n_reads},
-                       cmap)
-    return ClusterResult(out, choose_alignment(out), False, subgraphs, stats)
+    with span('assign'):
+        member = {}
+        for num, comp in enumerate(subgraphs):
+            for q in comp:
+                member[q] = (num, len(comp))
+        qn = bed['qname'].tolist()
+        singles: dict = {}
+        n_cluster = len(subgraphs)
+        cluster = np.empty(len(qn), np.int64)
+        n_reads = np.empty(len(qn), np.int64)
+        for i, q in enumerate(qn):
+            if q in member:
+                cluster[i], n_reads[i] = member[q]
+            else:
+                cluster[i] = singles.setdefault(q, n_cluster + len(singles))
+                n_reads[i] = 1
+        if singles:
+            cluster, n_reads = cluster.astype(np.float64), \
+                n_reads.astype(np.float64)
+        out = chrom_to_str({**bed, 'cluster': cluster, 'n_reads': n_reads},
+                           cmap)
+    with span('representatives'):
+        representatives = choose_alignment(out)
+    return ClusterResult(out, representatives, False, subgraphs, stats)

@@ -21,6 +21,7 @@ import csv
 import numpy as np
 
 import fslr_tpu_torch
+from fslr_tpu_torch.instrument import span
 from fslr_tpu_torch.stages.align import Alignments
 
 COLUMNS = ['chrom', 'rstart', 'rend', 'qname', 'n_alignments', 'aln_size',
@@ -197,10 +198,12 @@ def _cells(col: np.ndarray) -> list[str]:
 
 
 def write_mappings_bed(table: dict, path: str):
-    with open(path, 'w', newline='') as fh:
+    with span('format'):
+        cells = [_cells(v) for v in table.values()]
+    with span('write'), open(path, 'w', newline='') as fh:
         w = csv.writer(fh, delimiter='\t', lineterminator='\n')
         w.writerow(list(table))
-        w.writerows(zip(*(_cells(v) for v in table.values())))
+        w.writerows(zip(*cells))
 
 
 # ---------------------------------------------------------------------------

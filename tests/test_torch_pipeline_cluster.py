@@ -129,3 +129,28 @@ def test_no_clusters_found(tmp_path, capsys):
     assert os.path.exists(base + '.mappings.bed')
     assert not os.path.exists(base + '.mappings.cluster.bed')
     assert not os.path.exists(os.path.join(config.out, 'cluster'))
+
+
+# the steps each clustering stage times as spans (instrument.span)
+STEPS = {'read_mappings': ('parse', 'typing', 'header'),
+         'clustering': ('prepare', 'tables', 'enum_merge', 'gate_order',
+                        'value_replay', 'emit', 'components', 'assign',
+                        'representatives'),
+         'write_cluster_beds': ('format', 'write')}
+
+
+@pytest.mark.parametrize('tag', ['torch_cluster', 'torch_device_cluster'])
+def test_runs_time_every_clustering_step(golden_runs, tag):
+    """The host path's run and the device enumeration's write every step
+    of the three stages with positive seconds, within their stage's; the
+    query_graph note keeps sizes, no seconds."""
+    import json
+    timings = json.loads(_read(golden_runs[tag] + '.timings.json'))
+    secs = timings['timings_s']
+    for stage, steps in STEPS.items():
+        names = [f'{stage}.{s}' for s in steps]
+        assert all(secs.get(n, 0) > 0 for n in names), stage
+        assert sum(secs[n] for n in names) <= secs[stage]
+    note = timings['query_graph']
+    assert note['path'] == ('host' if tag == 'torch_cluster' else 'in-HBM')
+    assert not [k for k in note if k.endswith('_s')]
