@@ -252,3 +252,16 @@ def span(step: str):
         return
     with timer.stage(timer.step_name(step)):
         yield
+
+
+def count(note: str, **counts: int) -> None:
+    """Add ``counts`` to the counters of the note ``note`` of the active
+    timer (:func:`activate`), which ``timings.json`` holds under that
+    key, summed over the run's calls; nothing where no timer is active."""
+    timer = _active
+    if timer is None:
+        return
+    with timer._lock:
+        held = timer.notes.setdefault(note, {})
+        for key, n in counts.items():
+            held[key] = held.get(key, 0) + int(n)

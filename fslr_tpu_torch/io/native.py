@@ -1,19 +1,22 @@
-"""The port's host runtime: its FASTQ/FASTA parser (``csrc/fastx.cpp``),
-bound with ctypes.
+"""The port's host runtime: its FASTQ/FASTA parser (``csrc/fastx.cpp``)
+and its tab-separated table reader (``csrc/tsv.cpp``), one library bound
+with ctypes.
 
-At first use ``g++`` compiles the source into ``fslr_tpu_torch/_build/``,
-under a name that hashes the source, the flags and the host CPU
+At first use one ``g++`` call compiles both sources into
+``fslr_tpu_torch/_build/``, under a name that hashes the sources, the
+flags and the host CPU
 (``-march=native`` compiles for it), writing a temporary file that
 ``os.replace`` puts in place, so threads, processes and ranks that build
 at once each get a whole library.  A failed build raises with the
 compiler's output, a failed load with the loader's message: there is no
-other parser to fall back to.  Python reads the file and inflates gzip;
-the C++ gets the bytes.  A gzip file is read as zlib's ``gzread`` reads it
-in ``fslr_tpu``'s parser (``gz_look``): member after member while the
-bytes after one begin with the gzip magic, so text or zero padding after
-the last member ends the input quietly, and a member cut short yields
-what it inflated so far; corrupt deflate data or a failed CRC or length
-check raises.
+other parser or reader to fall back to.  Python reads the file and
+inflates gzip; the C++ gets the bytes.  A gzip file is read as zlib's
+``gzread`` reads it in ``fslr_tpu``'s parser (``gz_look``): member after
+member while the bytes after one begin with the gzip magic, so text or
+zero padding after the last member ends the input quietly, and a member
+cut short yields what it inflated so far; corrupt deflate data or a
+failed CRC or length check raises.  A table (:class:`TsvTable`) is read
+from plain bytes the caller gives.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ import zlib
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, 'csrc', 'fastx.cpp')
+SOURCES = tuple(os.path.join(_PKG, 'csrc', f)
+                for f in ('fastx.cpp', 'tsv.cpp'))
 BUILD_DIR = os.path.join(_PKG, '_build')
 CXX = 'g++'
 CXX_FLAGS = ('-O3', '-march=native', '-fPIC', '-shared', '-std=c++17')
@@ -56,42 +60,44 @@ def _host_cpu() -> bytes:
 
 
 def library_path() -> str:
-    """Path of the library built from the current source on this host
+    """Path of the library built from the current sources on this host
     (not built)."""
     h = hashlib.sha256(' '.join((CXX, *CXX_FLAGS)).encode())
     h.update(_host_cpu())
-    with open(SOURCE, 'rb') as fh:
-        h.update(fh.read())
-    return os.path.join(BUILD_DIR, f'libfslr_fastx_{h.hexdigest()[:16]}.so')
+    for src in SOURCES:
+        with open(src, 'rb') as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f'libfslr_host_{h.hexdigest()[:16]}.so')
 
 
 def build() -> str:
-    """Compile the parser unless this host has a build of the same source;
-    returns its path.  Raises with the compiler's output if it fails."""
+    """Compile the library unless this host has a build of the same
+    sources; returns its path.  Raises with the compiler's output if it
+    fails."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f'{so}.{os.getpid()}.{threading.get_ident()}.tmp'
     try:
-        res = subprocess.run([CXX, *CXX_FLAGS, '-o', tmp, SOURCE],
+        res = subprocess.run([CXX, *CXX_FLAGS, '-o', tmp, *SOURCES],
                              capture_output=True, text=True)
     except OSError as e:
-        raise RuntimeError(f'the FASTX parser needs {CXX} to build '
-                           f'{SOURCE}: {e}') from e
+        raise RuntimeError(f'the host runtime needs {CXX} to build '
+                           f'{" ".join(SOURCES)}: {e}') from e
     if res.returncode:
         if os.path.exists(tmp):
             os.remove(tmp)
-        raise RuntimeError(f'{CXX} failed ({res.returncode}) on {SOURCE}:\n'
-                           f'{res.stderr}')
+        raise RuntimeError(f'{CXX} failed ({res.returncode}) on '
+                           f'{" ".join(SOURCES)}:\n{res.stderr}')
     os.replace(tmp, so)
     return so
 
 
 def library() -> ctypes.CDLL:
-    """The loaded parser (built at first call; input files may be parsed on
-    several threads, --procs: the first caller builds and binds, the others
-    wait for its library)."""
+    """The loaded library (built at first call; input files may be parsed
+    on several threads, --procs: the first caller builds and binds, the
+    others wait for its library)."""
     global _LIB
     with _LOAD_LOCK:
         if _LIB is None:
@@ -99,7 +105,7 @@ def library() -> ctypes.CDLL:
             try:
                 lib = ctypes.CDLL(so)
             except OSError as e:
-                raise RuntimeError(f'cannot load the FASTX parser {so}: '
+                raise RuntimeError(f'cannot load the host runtime {so}: '
                                    f'{e}') from e
             lib.fslr_fastx_parse.restype = ctypes.c_void_p
             lib.fslr_fastx_parse.argtypes = [ctypes.c_void_p, ctypes.c_int64]
@@ -111,12 +117,14 @@ def library() -> ctypes.CDLL:
             lib.fslr_fastx_copy.restype = None
             lib.fslr_fastx_copy.argtypes = [ctypes.c_void_p] * 10
             lib.fslr_fastx_free.argtypes = [ctypes.c_void_p]
+            _bind_tsv(lib)
             _LIB = lib
     return _LIB
 
 
 def loaded_path() -> str | None:
-    """Path of the parser this process loaded, None before its first use."""
+    """Path of the library this process loaded, None before its first
+    use."""
     return None if _LIB is None else _LIB._name
 
 
@@ -355,3 +363,91 @@ def parse_fastx(path: str) -> FastxArrays:
                            comments.tobytes()[:ncom], comment_off)
     finally:
         lib.fslr_fastx_free(h)
+
+
+# ---------------------------------------------------------------------------
+# Tab-separated tables (csrc/tsv.cpp)
+# ---------------------------------------------------------------------------
+
+# column kinds of fslr_tsv_kind, and the numpy type fslr_tsv_fill writes
+TSV_INT, TSV_INT_NA, TSV_FLOAT, TSV_BOOL, TSV_BOOL_NA, TSV_STR, TSV_CELLS = \
+    range(7)
+_TSV_FILL = {TSV_INT: np.int64, TSV_INT_NA: np.float64,
+             TSV_FLOAT: np.float64, TSV_BOOL: np.bool_,
+             TSV_BOOL_NA: np.uint8, TSV_STR: np.int64, TSV_CELLS: np.int64}
+
+
+def _bind_tsv(lib: ctypes.CDLL) -> None:
+    h, i64, p = ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p
+    for fn, res, args in (
+            ('fslr_tsv_parse', h, [p, i64, i64, i64]),
+            ('fslr_tsv_status', i64, [h]), ('fslr_tsv_ncols', i64, [h]),
+            ('fslr_tsv_nrows', i64, [h]), ('fslr_tsv_kind', i64, [h, i64]),
+            ('fslr_tsv_header_bytes', i64, [h]),
+            ('fslr_tsv_header', None, [h, p]),
+            ('fslr_tsv_fill', i64, [h, i64, p]),
+            ('fslr_tsv_dict_bytes', i64, [h, i64]),
+            ('fslr_tsv_dict', None, [h, i64, p]),
+            ('fslr_tsv_free', None, [h])):
+        getattr(lib, fn).restype = res
+        getattr(lib, fn).argtypes = args
+
+
+class TsvTable:
+    """A tab-separated file's bytes tokenized and each column classified
+    by ``csrc/tsv.cpp`` (``csv.reader(delimiter='\\t')``'s fields, typed as
+    ``stages/cluster._parse_column`` types them for ``engine``, 'c' or
+    'pyarrow').  ``rectangular`` is False where the bytes are no
+    rectangle of cells (a blank line, a ragged row, a stray quote, no
+    header ...): read such a file with the csv module.  Quoted fields are
+    unescaped in ``data``, which the table keeps until :meth:`close`.
+    Strings come as bytes joined by NUL, which no table holds: decode and
+    split them."""
+
+    def __init__(self, data: bytearray, engine: str, field_limit: int):
+        self._lib = library()
+        self._data = np.frombuffer(data, np.uint8)    # writable, pinned
+        self._h = self._lib.fslr_tsv_parse(
+            self._data.ctypes.data, self._data.size,
+            int(engine == 'pyarrow'), field_limit)
+        if not self._h:
+            raise MemoryError('the table reader ran out of memory')
+        self.rectangular = self._lib.fslr_tsv_status(self._h) == 0
+        self.ncols = self._lib.fslr_tsv_ncols(self._h)
+        self.nrows = self._lib.fslr_tsv_nrows(self._h)
+        self.kinds = [self._lib.fslr_tsv_kind(self._h, j)
+                      for j in range(self.ncols)]
+
+    def header(self) -> bytes:
+        """The header's cells, joined by NUL."""
+        buf = ctypes.create_string_buffer(
+            self._lib.fslr_tsv_header_bytes(self._h))
+        self._lib.fslr_tsv_header(self._h, buf)
+        return buf.raw
+
+    def column(self, j: int) -> tuple[np.ndarray, bytes | None]:
+        """Column ``j``'s values as ``kinds[j]`` has them (TSV_BOOL_NA:
+        0 False, 1 True, 2 missing); for TSV_STR and TSV_CELLS the codes
+        of its cells and its distinct cells in code order (first seen
+        first), joined by NUL."""
+        out = np.empty(self.nrows, _TSV_FILL[self.kinds[j]])
+        k = self._lib.fslr_tsv_fill(self._h, j, out.ctypes.data)
+        if k < 0:
+            raise MemoryError('the table reader ran out of memory')
+        if self.kinds[j] not in (TSV_STR, TSV_CELLS):
+            return out, None
+        buf = ctypes.create_string_buffer(
+            self._lib.fslr_tsv_dict_bytes(self._h, j))
+        self._lib.fslr_tsv_dict(self._h, j, buf)
+        return out, buf.raw
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.fslr_tsv_free(self._h)
+            self._h = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -31,8 +31,10 @@ enumerates the encounters and reduces them to pairs on the device
 
 from __future__ import annotations
 
+import codecs
 import csv
 import dataclasses
+import os
 import re
 import sys
 from collections import namedtuple
@@ -41,7 +43,8 @@ import numpy as np
 import torch
 
 from fslr_tpu_torch.config import ClusterConfig
-from fslr_tpu_torch.instrument import span
+from fslr_tpu_torch.instrument import count, span
+from fslr_tpu_torch.io import native
 from fslr_tpu_torch.ops import capwalk, components, encounters, jaccard
 from fslr_tpu_torch.parallel import cluster_merge, dispatch
 
@@ -158,22 +161,82 @@ def _parse_column(cells: list[str], engine: str = 'pyarrow') -> np.ndarray:
     return out
 
 
+def _csv_columns(path: str) -> tuple[list, list]:
+    """The header and the columns of ``path`` by the csv module: the route
+    of a file that is no rectangle of cells, oddities kept (a blank line
+    or a short row truncates every column, as ``zip`` does)."""
+    with open(path, newline='') as fh:
+        rows = list(csv.reader(fh, delimiter='\t'))
+    header, body = rows[0], rows[1:]
+    return header, list(zip(*body)) if body else [()] * len(header)
+
+
+def _native_column(table, j: int, engine: str, encoding: str) -> np.ndarray:
+    """Column ``j`` of a :class:`native.TsvTable` as :func:`_parse_column`
+    types it; only its distinct strings become Python objects."""
+    values, uniques = table.column(j)
+    kind = table.kinds[j]
+    if kind == native.TSV_BOOL_NA:
+        fill = None if engine == 'pyarrow' else np.nan
+        return np.array([False, True, fill], object)[values]
+    if uniques is None:
+        return values
+    decoded = uniques.decode(encoding).split('\0')
+    strings = np.empty(len(decoded), object)
+    strings[:] = decoded
+    if kind == native.TSV_CELLS:
+        return _parse_column(strings[values].tolist(), engine)
+    if not NA_TOKENS.isdisjoint(decoded):
+        strings[[s in NA_TOKENS for s in decoded]] = np.nan
+    return strings[values]
+
+
 def read_mappings(path: str, engine: str = 'pyarrow') -> dict:
     """``{name}.mappings.bed`` as typed numpy columns, as
     ``pd.read_csv(path, sep='\\t', engine=engine)`` types them
     (:func:`_parse_column`): clustering reads it as fslr_tpu does, with
     ``'pyarrow'``; the merges of a multi-process run and of the consensus
-    stage with the C engine (``'c'``)."""
+    stage with the C engine (``'c'``).
+
+    The file's bytes are tokenized and typed by the host runtime
+    (``io/native.TsvTable``) as the csv module and :func:`_parse_column`
+    would: step ``parse`` reads and classifies, ``typing`` builds the
+    columns.  A column holding a form the runtime does not convert goes
+    to :func:`_parse_column` from its cells, and a file that is no
+    rectangle of cells, or not in UTF-8 or ASCII (the encoding
+    ``open`` gives it), to the csv module whole.  The active timer's
+    ``read_mappings`` note counts ``native_columns``, ``python_columns``
+    and ``python_file`` (files read whole by the csv module)."""
     if engine not in ENGINES:
         raise ValueError(f'engine {engine!r}: one of {ENGINES}')
     with span('parse'):
         with open(path, newline='') as fh:
-            rows = list(csv.reader(fh, delimiter='\t'))
-        header, body = rows[0], rows[1:]
-        cols = list(zip(*body)) if body else [()] * len(header)
-    with span('typing'):
-        return {h: _parse_column(list(c), engine)
-                for h, c in zip(header, cols)}
+            encoding = fh.encoding
+            data = bytearray(os.fstat(fh.fileno()).st_size)
+            del data[fh.buffer.readinto(data):]
+            data += fh.buffer.read()
+        table = None
+        if codecs.lookup(encoding).name in ('utf-8', 'ascii'):
+            table = native.TsvTable(data, engine, csv.field_size_limit())
+            if not table.rectangular:
+                table.close()
+                table = None
+        if table is None:
+            header, cols = _csv_columns(path)
+    if table is None:
+        count('read_mappings', native_columns=0, python_columns=0,
+              python_file=1)
+        with span('typing'):
+            return {h: _parse_column(list(c), engine)
+                    for h, c in zip(header, cols)}
+    with table, span('typing'):
+        header = table.header().decode(encoding).split('\0')
+        cols = [_native_column(table, j, engine, encoding)
+                for j in range(table.ncols)]
+    cells = table.kinds.count(native.TSV_CELLS)
+    count('read_mappings', native_columns=len(cols) - cells,
+          python_columns=cells, python_file=0)
+    return {h: c for h, c in zip(header, cols)}
 
 
 def _first_index(keys: np.ndarray):

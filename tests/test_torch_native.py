@@ -1,8 +1,10 @@
 """The port's FASTX parser (fslr_tpu_torch/csrc/fastx.cpp, io/native.py)
 against fslr_tpu's stage reader and the port's plain Python parser, field
 by field; gzip files that zlib's gzread (fslr_tpu's reader) reads and
-Python's gzip module refuses; where its library is built and loaded from;
-and that a failed build or load raises instead of falling back."""
+Python's gzip module refuses; where its library is built and loaded from,
+one library of both host sources (fastx.cpp and the table reader
+tsv.cpp); and that a failed build or load raises instead of falling
+back."""
 
 import gzip
 import hashlib
@@ -208,6 +210,43 @@ def test_library_is_the_ports_own_build(tmp_path):
                            'libfslr_native.so'}
 
 
+def test_library_builds_both_sources(tmp_path, monkeypatch):
+    """One g++ call compiles fastx.cpp and tsv.cpp into one library, which
+    binds the parser's and the table reader's entry points."""
+    assert [os.path.basename(s) for s in native.SOURCES] == ['fastx.cpp',
+                                                             'tsv.cpp']
+    _unbuilt(monkeypatch, tmp_path)
+    calls = []
+    run = native.subprocess.run
+
+    def recorded(cmd, **kw):
+        calls.append(cmd)
+        return run(cmd, **kw)
+    monkeypatch.setattr(native.subprocess, 'run', recorded)
+    lib = native.library()
+    assert len(calls) == 1 and calls[0][-2:] == list(native.SOURCES)
+    assert lib.fslr_fastx_parse and lib.fslr_tsv_parse
+    assert native.loaded_path() == native.library_path()
+    table = native.TsvTable(bytearray(b'a\tb\n1\tx\n'), 'pyarrow', 1 << 20)
+    with table:
+        assert table.rectangular and table.kinds == [native.TSV_INT,
+                                                     native.TSV_STR]
+
+
+@pytest.mark.parametrize('which', [0, 1], ids=['fastx', 'tsv'])
+def test_library_path_hashes_each_source(tmp_path, monkeypatch, which):
+    """A change to either source names another library."""
+    before = native.library_path()
+    srcs = list(native.SOURCES)
+    changed = tmp_path / os.path.basename(srcs[which])
+    with open(srcs[which], 'rb') as fh:
+        changed.write_bytes(fh.read() + b'\n// changed\n')
+    srcs[which] = str(changed)
+    monkeypatch.setattr(native, 'SOURCES', tuple(srcs))
+    assert native.library_path() != before
+    assert os.path.dirname(native.library_path()) == native.BUILD_DIR
+
+
 def _unbuilt(monkeypatch, tmp_path):
     """The parser unloaded and its build directory empty, under tmp_path."""
     monkeypatch.setattr(native, '_LIB', None)
@@ -222,7 +261,7 @@ def _missing_compiler(monkeypatch, tmp_path):
 def _broken_source(monkeypatch, tmp_path):
     src = tmp_path / 'fastx.cpp'
     src.write_text('extern "C" int fslr_fastx_n(void* h) { return h; }\n')
-    monkeypatch.setattr(native, 'SOURCE', str(src))
+    monkeypatch.setattr(native, 'SOURCES', (str(src), native.SOURCES[1]))
     return 'failed'
 
 

@@ -154,3 +154,17 @@ def test_runs_time_every_clustering_step(golden_runs, tag):
     note = timings['query_graph']
     assert note['path'] == ('host' if tag == 'torch_cluster' else 'in-HBM')
     assert not [k for k in note if k.endswith('_s')]
+
+
+@pytest.mark.parametrize('tag', ['torch_cluster', 'torch_device_cluster'])
+def test_runs_note_how_read_mappings_typed_the_bed(golden_runs, tag):
+    """The read_mappings note of timings.json: every column of the golden
+    mappings.bed typed by the host runtime, none by _parse_column, and
+    the file not read whole by the csv module."""
+    import json
+    timings = json.loads(_read(golden_runs[tag] + '.timings.json'))
+    with open(golden_runs[tag] + '.mappings.bed') as fh:
+        columns = len(fh.readline().split('\t'))
+    assert timings['read_mappings'] == {'native_columns': columns,
+                                        'python_columns': 0,
+                                        'python_file': 0}
